@@ -6,8 +6,8 @@ plain dataclasses, a JSON/YAML loader and dotted-path ``--set`` overrides.
 Defaults reproduce the published GenS DTU recipe.
 
 Keys that only choose a TPU memory layout are accepted and change no math
-in the port: ``volume.packed_bilerp`` (except its bf16 rounding, below),
-``volume.splat_window``, ``volume.splat_impl``, ``volume.splat_mm_dtype``,
+in the port: ``volume.packed_bilerp`` (except its bf16 rounding and the
+splat backward, below), ``volume.splat_window``, ``volume.splat_impl``,
 ``volume.agg_remat``, ``sdf_network.packed_trilerp``,
 ``sdf_network.fused_*``, ``color_network.packed_bilerp``,
 ``color_network.fused_pyramid`` and ``compilation_cache_dir``.
@@ -19,7 +19,9 @@ activations), ``sdf_network.volume_dtype`` (the cascade inside the trilerp),
 ``color_network.packed_dtype`` (source-view maps when
 ``color_network.packed_bilerp`` is on), and ``volume.packed_bilerp`` in
 {"table_bf16", "pallas"}, whose aggregation forward reads bf16-rounded
-feature values.
+feature values and whose backward is the splat K1, in f32 or, under
+"pallas" at scales whose dim is a multiple of 16, with the operand
+rounding of ``volume.splat_mm_dtype``.
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ class VolumeConfig:
     # and makes its autodiff cotangents half-width too.
     dtype: str = "float32"
     # the JAX aggregation's gather layout (False | True | "diff" | "table" |
-    # "table_bf16" | "pallas"); in the port only its bf16 reading of the
-    # feature maps under "table_bf16" and "pallas" changes values
+    # "table_bf16" | "pallas"); in the port "table_bf16" and "pallas" read
+    # bf16-rounded feature maps and take the splat K1 as their backward
     packed_bilerp: object = "table"
     # TPU layout keys of the JAX aggregation backward (splat window, splat
-    # kernel choice and operand dtype, remat policy): accepted, unused
+    # kernel choice, remat policy): accepted, unused
     splat_window: object = "auto"
     splat_impl: str = "auto"
+    # K1's operand rounding under packed_bilerp "pallas" ("bfloat16" |
+    # "float32", the exact adjoint)
     splat_mm_dtype: str = "bfloat16"
     agg_remat: str = "full"
     # cross-view aggregation: "mean_var" (reference live path) or "adaptive"

@@ -7,6 +7,9 @@
 * :func:`params_from_jax` turns a JAX parameter tree (nested dicts of numpy
   arrays, any float dtype) into a ``GenSModel`` state dict in f32.
 * :func:`load_params` does both into a model.
+* :func:`params_to_jax` is the inverse of :func:`params_from_jax`: a port
+  state dict as the JAX parameter tree (numpy f32 leaves, flax names), the
+  ``params`` of the port's training checkpoints.
 
 Layout changes at the bridge: flax Conv kernels (kh, kw, in, out) become
 torch (out, in, kh, kw); ConvTranspose kernels become (in, out, kh, kw),
@@ -152,3 +155,75 @@ def load_params(model: torch.nn.Module, source) -> Dict[str, Any]:
     state = params_from_jax(payload["params"])
     model.load_state_dict(state, strict=True)
     return payload
+
+
+# -- port state dict -> JAX tree (the inverse of the maps above) --------------
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
+def _set(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _conv2d_to_jax(w: torch.Tensor) -> np.ndarray:
+    return _np(w.permute(2, 3, 1, 0))
+
+
+def _conv_transpose2d_to_jax(w: torch.Tensor) -> np.ndarray:
+    return _np(w.flip(2, 3).permute(2, 3, 0, 1))
+
+
+def _conv3d_to_jax(w: torch.Tensor) -> np.ndarray:
+    w = w.permute(2, 3, 4, 1, 0)  # (kx, ky, kz, C, out)
+    return _np(torch.cat([w[2], w[1], w[0]], dim=2))  # [w_up|w_mid|w_dn]
+
+
+_TO_JAX = [
+    (r"(feature|match_feature)\.enc\.(\d+)\.conv\.weight",
+     lambda m: (m[1], "params", f"ConvBlock_{m[2]}", "Conv_0", "kernel"),
+     _conv2d_to_jax),
+    (r"(feature|match_feature)\.dec\.(\d+)\.weight",
+     lambda m: (m[1], "params", f"DeconvBlock_{m[2]}", "ConvTranspose_0",
+                "kernel"), _conv_transpose2d_to_jax),
+    (r"(feature|match_feature)\.heads\.(\d+)\.weight",
+     lambda m: (m[1], "params", f"Conv_{m[2]}", "kernel"), _conv2d_to_jax),
+    (r"reg\.blocks\.(\d+)\.weight",
+     lambda m: ("reg", "params", f"CheckpointConv3dBlock_{m[1]}", "kernel"),
+     _conv3d_to_jax),
+    (r"reg\.blocks\.(\d+)\.bias",
+     lambda m: ("reg", "params", f"CheckpointConv3dBlock_{m[1]}", "bias"),
+     _np),
+    (r"reg\.ups\.(\d+)\.conv\.weight",
+     lambda m: ("reg", "params", f"CheckpointUpsample3dBlock_{m[1]}",
+                "Conv3dBlock_0", "kernel"), _conv3d_to_jax),
+    (r"sdf\.(lin\d+)\.(v|g|b)",
+     lambda m: ("sdf", "params", m[1], m[2]), _np),
+    (r"blending\.mlps\.(\d+)\.layers\.(\d+)\.weight",
+     lambda m: ("blending", "params", f"MLP_{m[1]}", f"Dense_{m[2]}",
+                "kernel"), lambda w: _np(w.t())),
+    (r"blending\.mlps\.(\d+)\.layers\.(\d+)\.bias",
+     lambda m: ("blending", "params", f"MLP_{m[1]}", f"Dense_{m[2]}",
+                "bias"), _np),
+    (r"blending\.s", lambda m: ("blending", "params", "s"), _np),
+    (r"variance\.variance",
+     lambda m: ("variance", "params", "variance"), _np),
+]
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``GenSModel`` state dict -> JAX GenS param tree (numpy f32)."""
+    tree: Dict[str, Any] = {}
+    for name, value in state.items():
+        for pattern, path, fn in _TO_JAX:
+            m = re.fullmatch(pattern, name)
+            if m is not None:
+                _set(tree, path(m), fn(value))
+                break
+        else:
+            raise KeyError(f"no JAX name for port parameter {name!r}")
+    return tree

@@ -186,34 +186,77 @@ def make_scene(n_views: int = 3, hw=(64, 64), radius: float = 0.5,
 
 
 class SyntheticDataset:
-    """Val-protocol dataset over the analytic sphere scene, so the Runner
-    runs with no data on disk (the train protocol comes with training)."""
+    """Dataset over the analytic sphere scene for the train and val item
+    protocols, so the Runner runs with no data on disk (the finetune
+    protocol comes with finetuning).
+
+    Train items draw ``n_rays`` reference-view pixels and ``n_pseudo_pts``
+    surface points from one ``numpy.random.RandomState(seed)``, in the JAX
+    dataset's order, so both packages give the same batches for a seed."""
 
     def __init__(self, n_scenes: int = 1, n_views: int = 3, hw=(64, 64),
-                 val_res_level: int = 4, seed: int = 0):
+                 n_rays: int = 64, val_res_level: int = 4,
+                 n_pseudo_pts: int = 64, mode: str = "val", seed: int = 0):
         self.n_scenes = n_scenes
         self.n_views = n_views
         self.hw = hw
+        self.n_rays = n_rays
         self.val_res_level = val_res_level
+        self.n_pseudo_pts = n_pseudo_pts
+        self.mode = mode
+        self.rng = np.random.RandomState(seed)
         self._seed = seed
         self._cache = {}
 
     def __len__(self):
         return self.n_scenes
 
-    def _scene(self, idx):
+    def _scene(self, idx, n_rays):
         """Per-index scene with the images and cameras raytraced once and
-        cached, as a dataset on disk would hold them."""
+        cached, as a dataset on disk would hold them; only the ray batch is
+        drawn anew per call."""
         if idx not in self._cache:
             self._cache[idx] = make_scene(n_views=self.n_views, hw=self.hw,
                                           n_rays=1,
                                           seed=self._seed + 7919 * idx)
-        return dict(self._cache[idx])
+        base = self._cache[idx]
+        out = dict(base)
+        H, W = self.hw
+        intr, c2w = base["intrs"][0], base["c2ws"][0]
+        px = self.rng.randint(0, W, size=n_rays).astype(np.float32)
+        py = self.rng.randint(0, H, size=n_rays).astype(np.float32)
+        pix = np.stack([px, py, np.ones_like(px)], axis=-1)
+        d = pix @ np.linalg.inv(intr).T
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        out["rays_d"] = (d @ c2w[:3, :3].T).astype(np.float32)
+        out["rays_o"] = np.broadcast_to(
+            c2w[:3, 3], out["rays_d"].shape).astype(np.float32).copy()
+        out["color"] = base["imgs"][0][py.astype(int), px.astype(int)]
+        return out
 
     def __getitem__(self, idx):
+        if self.mode == "train":
+            out = self._scene(idx, self.n_rays)
+            radius = out.pop("radius")
+            # pseudo supervision from the analytic sphere: exact depth along
+            # the sampled rays and exact surface points
+            b = np.sum(out["rays_d"] * out["rays_o"], axis=-1)
+            c = np.sum(out["rays_o"] ** 2, axis=-1) - radius ** 2
+            disc = b ** 2 - c
+            t = -b - np.sqrt(np.maximum(disc, 0.0))
+            hit = (disc > 0) & (t > 0)
+            cam_z = (out["rays_d"] @ np.linalg.inv(
+                out["c2ws"][0][:3, :3]).T)[:, 2]
+            out["pseudo_depth"] = np.where(hit, t * cam_z, 0.0).astype(
+                np.float32)
+            dirs = self.rng.randn(self.n_pseudo_pts, 3).astype(np.float32)
+            dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+            out["pseudo_pts"] = (dirs * radius).astype(np.float32)
+            return out
+
         H, W = self.hw
         stride = self.val_res_level
-        out = self._scene(idx)
+        out = self._scene(idx, 1)
         radius = out.pop("radius")
         tx = np.linspace(0, W - 1, W // stride, dtype=np.float32)
         ty = np.linspace(0, H - 1, H // stride, dtype=np.float32)

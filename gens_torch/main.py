@@ -1,11 +1,12 @@
 """CLI entry point (counterpart of gens_tpu/main.py).
 
 Usage:
+    python -m gens_torch.main --conf confs/dtu.yaml --mode train [--resume CKPT]
     python -m gens_torch.main --conf confs/dtu.yaml --mode val --resume CKPT
     python -m gens_torch.main ... --device cpu   # the CPU, on request only
 
 The port runs on the card: without a CUDA device and without
-``--device cpu`` it raises. ``--mode train|finetune`` are later slices.
+``--device cpu`` it raises. ``--mode finetune`` is a later slice.
 """
 
 from __future__ import annotations
@@ -40,9 +41,9 @@ def main(argv=None) -> Runner:
     parser.add_argument("--set", dest="overrides", nargs="*", default=[],
                         help="dotted overrides, e.g. mesh_resolution=256")
     args = parser.parse_args(argv)
-    if args.mode != "val":
+    if args.mode == "finetune":
         raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet; see ROADMAP.md")
+            "--mode finetune is not ported yet; see ROADMAP.md")
     device = resolve_device(args.device)
 
     cfg = load_config(args.conf, args.overrides)

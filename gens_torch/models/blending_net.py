@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gens_torch.config import BlendingNetConfig
+from gens_torch.models.init import he_normal_
 
 
 def _fused_mean_variance(x, weight):
@@ -28,7 +29,10 @@ class MLP(nn.Module):
         super().__init__()
         layers, c = [], d_in
         for f in features:
-            layers.append(nn.Linear(c, f))
+            lin = nn.Linear(c, f)
+            he_normal_(lin.weight, c)
+            nn.init.zeros_(lin.bias)
+            layers.append(lin)
             c = f
         self.layers = nn.ModuleList(layers)
         self.final_act = final_act

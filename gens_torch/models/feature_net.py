@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gens_torch.config import FeatureNetConfig
+from gens_torch.models.init import lecun_normal_
 
 
 def same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -46,6 +47,7 @@ class SameConv2d(nn.Conv2d):
 
     def __init__(self, c_in: int, c_out: int, stride: int = 1):
         super().__init__(c_in, c_out, 3, stride=stride, padding=0, bias=False)
+        lecun_normal_(self.weight, 9 * c_in)
 
     def forward(self, x):
         s = self.stride[0]
@@ -72,7 +74,7 @@ class DeconvBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(c_in, c_out, 3, 3))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        lecun_normal_(self.weight, 9 * c_in)
 
     def forward(self, x):
         H, W = x.shape[2], x.shape[3]

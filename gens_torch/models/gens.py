@@ -1,6 +1,7 @@
 """GenS model facade (counterpart of gens_tpu/models/gens.py): owns the
-modules and builds a ``Scene`` for the generalizable regime --
-feature net -> cross-view volume aggregation -> 3D U-Net.
+modules, builds a ``Scene`` for the generalizable regime -- feature net ->
+cross-view volume aggregation -> 3D U-Net -- and runs the training forward
+(build the scene under autograd, render the ray batch, pseudo-point SDF).
 
 The JAX parameter tree's top-level keys map to submodules: ``feature``,
 ``match_feature`` (the frozen matching copy), ``reg``, ``sdf``,
@@ -9,7 +10,7 @@ The JAX parameter tree's top-level keys map to submodules: ``feature``,
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,6 +41,9 @@ class GenSModel(nn.Module):
         self.cfg = cfg
         self.feature = FeatureNetwork(cfg.feature_network)
         self.match_feature = FeatureNetwork(cfg.feature_network)
+        # the frozen matching copy (resynced from ``feature`` by the trainer)
+        self.match_feature.load_state_dict(self.feature.state_dict())
+        self.match_feature.requires_grad_(False)
         self.reg = RegNetwork(cfg.reg_network)
         self.sdf = SDFNetwork(cfg.sdf_network)
         self.blending = BlendingNetwork(cfg.color_network)
@@ -52,8 +56,11 @@ class GenSModel(nn.Module):
 
     def extract_features(self, imgs: torch.Tensor, match: bool = False
                          ) -> Tuple[torch.Tensor, ...]:
-        net = self.match_feature if match else self.feature
-        return net(imgs)
+        """The matching copy is frozen: its features carry no graph."""
+        if match:
+            with torch.no_grad():
+                return self.match_feature(imgs)
+        return self.feature(imgs)
 
     def build_volumes(self, features: Sequence[torch.Tensor],
                       intrs: torch.Tensor, c2ws: torch.Tensor
@@ -63,7 +70,7 @@ class GenSModel(nn.Module):
             features, intrs, c2ws, v.volume_dims,
             min_vis_view=v.min_vis_view,
             out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
-            packed_bilerp=v.packed_bilerp)
+            packed_bilerp=v.packed_bilerp, splat_mm_dtype=v.splat_mm_dtype)
         return self.reg(raw_vols), mask_vols
 
     def build_scene(self, imgs: torch.Tensor, intrs: torch.Tensor,
@@ -76,3 +83,36 @@ class GenSModel(nn.Module):
                      features=features, match_features=match_features,
                      imgs=imgs, intrs=intrs, c2ws=c2ws,
                      mask_any=combine_mask_cascade(mask_vols))
+
+    def forward_train(self, inputs: Dict[str, torch.Tensor],
+                      cos_anneal_ratio: float, use_match_features: bool,
+                      generator: Optional[torch.Generator] = None,
+                      perturb_noise: Optional[torch.Tensor] = None,
+                      sparse_pts: Optional[torch.Tensor] = None) -> Dict:
+        """One training forward (the JAX ``forward_train``): build the
+        scene, then :meth:`render_train`. ``inputs``: imgs (V,H,W,3), intrs
+        (V,3,3), c2ws (V,4,4), rays_o/rays_d (R,3), near/far (1,1) or (R,1),
+        optional pseudo_pts (P,3)."""
+        scene = self.build_scene(inputs["imgs"], inputs["intrs"],
+                                 inputs["c2ws"])
+        return self.render_train(scene, inputs, cos_anneal_ratio,
+                                 use_match_features, generator,
+                                 perturb_noise, sparse_pts)
+
+    def render_train(self, scene: Scene, inputs: Dict[str, torch.Tensor],
+                     cos_anneal_ratio: float, use_match_features: bool,
+                     generator: Optional[torch.Generator] = None,
+                     perturb_noise: Optional[torch.Tensor] = None,
+                     sparse_pts: Optional[torch.Tensor] = None) -> Dict:
+        """Render the ray batch with the training outputs, and the SDF at
+        ``pseudo_pts`` when the batch has them."""
+        outputs = self.renderer.render(
+            inputs["rays_o"], inputs["rays_d"], inputs["near"],
+            inputs["far"], scene, cos_anneal_ratio=cos_anneal_ratio,
+            train=True, use_match_features=use_match_features,
+            generator=generator, perturb_noise=perturb_noise,
+            sparse_pts=sparse_pts)
+        if "pseudo_pts" in inputs:
+            outputs["pseudo_sdf"] = self.renderer.pseudo_sdf(
+                scene, inputs["pseudo_pts"])
+        return outputs

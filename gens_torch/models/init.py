@@ -1,0 +1,33 @@
+"""Parameter initializers of the JAX package's flax modules, for a fresh
+training run (``--mode train`` without ``--resume``).
+
+flax's ``lecun_normal`` and ``he_normal`` are variance scaling with a
+truncated normal: std = sqrt(scale / fan_in) / 0.8796..., cut at ±2 std,
+where fan_in counts the kernel's input channels times its receptive field.
+The draws come from torch's generator, so they are not JAX's numbers; the
+families and scales are the same.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def variance_scaling_(t: torch.Tensor, scale: float, fan_in: int
+                      ) -> torch.Tensor:
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    return variance_scaling_(t, 1.0, fan_in)
+
+
+def he_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    return variance_scaling_(t, 2.0, fan_in)

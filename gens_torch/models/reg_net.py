@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from gens_torch.config import RegNetConfig
 from gens_torch.models.feature_net import same_pad
+from gens_torch.models.init import lecun_normal_
 
 
 class Conv3dBlock(nn.Module):
@@ -38,7 +39,7 @@ class Conv3dBlock(nn.Module):
         self.stride = stride
         self.norm_relu = norm_relu
         self.weight = nn.Parameter(torch.empty(c_out, c_in, 3, 3, 3))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        lecun_normal_(self.weight, 27 * c_in)
         self.bias = None if norm_relu else nn.Parameter(torch.zeros(c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

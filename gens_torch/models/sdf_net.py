@@ -9,7 +9,10 @@ Hidden layers use Softplus(β=100) in the form of ``jax.nn.softplus``:
 ``threshold=20`` shortcut.
 
 Parameters keep the JAX layout: ``lin{l}.v`` is (in, out), ``g`` and ``b``
-are (out,); weight norm is taken over axis 0 (w = g·v/‖v‖).
+are (out,); weight norm is taken over axis 0 (w = g·v/‖v‖). A new network
+takes the NeuS geometric initialization of the JAX module (feature columns
+zeroed, the output a sphere of radius ``bias``), or lecun-normal kernels
+and zero biases when ``geometric_init`` is off; ``g`` starts at ‖v‖.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn as nn
 from gens_torch.config import SDFNetConfig
 from gens_torch.models.embedder import (positional_encoding,
                                         positional_encoding_dim)
+from gens_torch.models.init import lecun_normal_
 from gens_torch.ops.interp import lookup_volume_cascade
 
 
@@ -77,6 +81,39 @@ class SDFNetwork(nn.Module):
         for l, layer in enumerate(layers):
             self.add_module(f"lin{l}", layer)
         self.n_lin = len(layers)
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The JAX module's initialization (``_geo_w_init`` / ``_geo_b_init``
+        of gens_tpu/models/sdf_net.py), drawn from torch's generator."""
+        c = self.cfg
+        dims, d_feat = self.dims, self.d_feat_embedded
+        num_layers = len(dims)
+        for l, layer in enumerate(self.layers()):
+            v, b = layer.v, layer.b
+            d_in_l, d_out_l = v.shape
+            std = math.sqrt(2) / math.sqrt(d_out_l)
+            b.zero_()
+            if not c.geometric_init:
+                lecun_normal_(v, d_in_l)
+            elif l == num_layers - 2:
+                mean = math.sqrt(math.pi) / math.sqrt(d_in_l)
+                v.normal_(0.0, 1e-4).add_(-mean if c.inside_outside else mean)
+                v[-d_feat:, :] = 0.0
+                b.fill_(c.bias if c.inside_outside else -c.bias)
+                b[-d_feat:] = 0.0
+            elif c.multires > 0 and l == 0:
+                v.zero_()
+                v[:3, :].normal_(0.0, std)
+            elif c.multires > 0 and l in c.skip_in:
+                v.normal_(0.0, std)
+                v[-(dims[0] - 3 + d_feat):, :] = 0.0
+            else:
+                v.normal_(0.0, std)
+                v[-d_feat:, :] = 0.0
+            if layer.g is not None:
+                layer.g.copy_(torch.linalg.norm(v, dim=0))
 
     def layers(self) -> List[WNLinear]:
         return [getattr(self, f"lin{l}") for l in range(self.n_lin)]

@@ -10,18 +10,26 @@ form the raw volume. A voxel is valid when seen by strictly more than
 
 The JAX function walks the grid in x-slabs under a scan to fit a 16 GB
 chip; the whole 256³ grid fits an 80 GB card, so there is no slab loop
-here. The projection runs in true f32 (``apply_linear``), the in-image test
-in normalized coordinates, and Σf·m, Σf²·m, Σm accumulate in f32.
+here and no recomputation in the backward (the JAX remat policies). The
+projection runs in true f32 (``apply_linear``), the in-image test in
+normalized coordinates, and Σf·m, Σf²·m, Σm accumulate in f32.
+
+Under ``packed_bilerp`` "table_bf16" and "pallas" the JAX forward reads a
+bf16 copy of the feature map while its backward stays f32 (the mixed-table
+tangents, the Pallas splat). Here :class:`~gens_torch.ops.splat.BilerpAggSplat`
+does both: bilerp of the bf16-rounded map forward, K1 backward. Autograd of
+a plain ``.to(bf16)`` round trip would round the cotangent to bf16.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from gens_torch.ops.interp import bilerp
 from gens_torch.ops.projection import apply_linear, scale_intrinsics
+from gens_torch.ops.splat import bilerp_agg_splat
 
 # volume.packed_bilerp modes whose aggregation forward reads a bf16 copy of
 # the feature map
@@ -39,16 +47,17 @@ def voxel_grid(dim: int, device=None, dtype=torch.float32) -> torch.Tensor:
 def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
                     c2ws: torch.Tensor, dim: int, scale_idx: int,
                     min_vis_view: int = 1, out_dtype=None,
-                    bf16_features: bool = False
+                    splat_mm_dtype: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cascade scale. feat (V, H_i, W_i, C); intrs (V, 3, 3) at the
-    finest scale; c2ws (V, 4, 4). Returns ``volume (dim, dim, dim, 2C)``
-    (mean ‖ var) and ``mask (dim, dim, dim)`` float."""
+    finest scale; c2ws (V, 4, 4). ``splat_mm_dtype`` None samples with the
+    plain ``bilerp`` (autograd gives the f32 adjoint); a dtype samples the
+    bf16-rounded map through :class:`BilerpAggSplat`, whose backward is K1
+    with that operand dtype. Returns ``volume (dim, dim, dim, 2C)`` (mean ‖
+    var) and ``mask (dim, dim, dim)`` float."""
     V, H, W, C = feat.shape
     intrs_i = scale_intrinsics(intrs, scale_idx)
     out_dtype = out_dtype or feat.dtype
-    if bf16_features:
-        feat = feat.to(torch.bfloat16).float()
     pts = voxel_grid(dim, feat.device, feat.dtype)
     warp_sum = torch.zeros((pts.shape[0], C), dtype=torch.float32,
                            device=feat.device)
@@ -56,19 +65,27 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
     mask_sum = torch.zeros((pts.shape[0],), dtype=torch.float32,
                            device=feat.device)
     for v in range(V):
-        w2c = torch.linalg.inv(c2ws[v])
-        cam = apply_linear(pts, w2c[:3, :3], w2c[:3, 3])
-        uvw = apply_linear(cam, intrs_i[v])
-        xy = uvw[:, :2] / (uvw[:, 2:] + 1e-8)
-        nx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
-        ny = xy[:, 1] / ((H - 1) / 2.0) - 1.0
-        mask = ((nx.abs() <= 1) & (ny.abs() <= 1) & (cam[:, 2] > 0)
-                ).to(feat.dtype)
-        vm = bilerp(feat[v], xy) * mask[:, None]
+        with torch.no_grad():
+            w2c = torch.linalg.inv(c2ws[v])
+            cam = apply_linear(pts, w2c[:3, :3], w2c[:3, 3])
+            uvw = apply_linear(cam, intrs_i[v])
+            xy = uvw[:, :2] / (uvw[:, 2:] + 1e-8)
+            nx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
+            ny = xy[:, 1] / ((H - 1) / 2.0) - 1.0
+            mask = ((nx.abs() <= 1) & (ny.abs() <= 1) & (cam[:, 2] > 0)
+                    ).to(feat.dtype)
+            del cam, uvw, nx, ny
+        if splat_mm_dtype is None:
+            vals = bilerp(feat[v], xy)
+        else:
+            vals = bilerp_agg_splat(feat[v], xy, splat_mm_dtype)
+        vm = vals * mask[:, None]
+        # in place: the sums' backward keeps nothing, so per view only xy,
+        # the mask and vm (for vm²) stay alive for the backward
         warp_sum += vm.float()
         warp_sq_sum += (vm * vm).float()
         mask_sum += mask.float()
-        del cam, uvw, xy, nx, ny, vm
+        del xy, vals, vm
     denom = torch.where(mask_sum <= 0, torch.full_like(mask_sum, 1e-8),
                         mask_sum)[:, None]
     mean = warp_sum / denom
@@ -79,21 +96,35 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
     return volume, mask_volume
 
 
+def splat_dtype(packed_bilerp, dim: int, splat_mm_dtype: str
+                ) -> Optional[str]:
+    """K1's operand dtype at one cascade scale, or None for the plain
+    ``bilerp``. "table_bf16" has the exact f32 adjoint; "pallas" takes
+    ``splat_mm_dtype`` where the JAX kernel runs (dim a multiple of 16) and
+    falls back to "table_bf16" elsewhere, as the JAX function does."""
+    if packed_bilerp not in BF16_FEATURE_MODES:
+        return None
+    if packed_bilerp == "pallas" and dim % 16 == 0 and dim >= 16:
+        return "bfloat16" if splat_mm_dtype == "bfloat16" else "float32"
+    return "float32"
+
+
 def agg_mean_var(features: Sequence[torch.Tensor], intrs: torch.Tensor,
                  c2ws: torch.Tensor, volume_dims: Sequence[int],
                  min_vis_view: int = 1, out_dtype=None,
-                 packed_bilerp=False
+                 packed_bilerp=False, splat_mm_dtype: str = "bfloat16"
                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Build the full cascade from ``features[i]`` (V, H_i, W_i, C),
-    fine-to-coarse. ``packed_bilerp`` in :data:`BF16_FEATURE_MODES` rounds
-    the feature maps to bf16 before sampling, as the JAX forward reads a
-    bf16 table there. Returns (volumes, mask_volumes)."""
-    bf16 = packed_bilerp in BF16_FEATURE_MODES
+    fine-to-coarse. ``packed_bilerp`` in :data:`BF16_FEATURE_MODES` samples
+    bf16-rounded feature maps, as the JAX forward reads a bf16 table there,
+    and keeps the backward f32 through K1 (:func:`splat_dtype`). Returns
+    (volumes, mask_volumes)."""
     volumes, masks = [], []
     for i, dim in enumerate(volume_dims):
-        vol, m = aggregate_scale(features[i], intrs, c2ws, dim, i,
-                                 min_vis_view=min_vis_view,
-                                 out_dtype=out_dtype, bf16_features=bf16)
+        vol, m = aggregate_scale(
+            features[i], intrs, c2ws, dim, i, min_vis_view=min_vis_view,
+            out_dtype=out_dtype,
+            splat_mm_dtype=splat_dtype(packed_bilerp, dim, splat_mm_dtype))
         volumes.append(vol)
         masks.append(m)
     return volumes, masks

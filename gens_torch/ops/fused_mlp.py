@@ -14,23 +14,14 @@ ctypes. ``sdf_mlp_fused.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
 
 from gens_torch.config import SDFNetConfig
+from gens_torch.ops.cuda_build import build_library
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "sdf_mlp.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "gens_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _INV_SQRT2 = 0.70710678118654752
 
 
@@ -108,40 +99,10 @@ def sdf_mlp_plain(fm: FoldedMLP, x_pe: torch.Tensor,
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: K3 builds from gens_torch/csrc with "
-                       "the CUDA toolkit (CUDA_HOME or PATH)")
-
-
-def build_kernel() -> Tuple[str, Optional[float], str]:
-    """Compile ``csrc/sdf_mlp.cu`` into ``build/gens_torch/`` unless the
-    library for this source already exists. Returns (path, build seconds or
-    None when it existed, nvcc's ptxas report)."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    path = os.path.join(BUILD_DIR, f"libsdf_mlp_{digest}.so")
-    seconds, log = None, ""
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        res = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", tmp, _SRC],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-        os.replace(tmp, path)
-        seconds, log = time.perf_counter() - t0, res.stderr
-    return path, seconds, log
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_kernel()[0])
+        lib = ctypes.CDLL(build_library("sdf_mlp.cu")[0])
         lib.sdf_mlp_forward.restype = ctypes.c_int
         lib.sdf_mlp_forward.argtypes = (
             [ctypes.c_void_p] * 4

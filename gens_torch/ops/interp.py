@@ -10,7 +10,9 @@ Conventions, as in the JAX package:
 
 The lerp weights are differentiable in the sample coordinates (the floor is
 taken on a detached copy), so autograd gives point gradients of any order
-through ``trilerp`` -- the val path needs the first (normals from ∇SDF).
+through ``trilerp``: the val path needs the first (normals from ∇SDF), the
+training loss the third (it differentiates the Hessian·1 term w.r.t. the
+parameters and the volumes).
 The supercell and packed tables of the JAX package are TPU gather layouts
 and have no counterpart here.
 """
@@ -125,6 +127,14 @@ def combine_mask_cascade(mask_volumes: Sequence[torch.Tensor]) -> torch.Tensor:
 def lookup_mask(mask_any: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Single-volume mask lookup: (N,) float 0/1."""
     return (nearest3d(mask_any[..., None], pts)[..., 0] > 0).float()
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (held in f32), with the identity as gradient:
+    the cotangent stays f32, where autograd of ``x.to(bf16).float()`` would
+    round it to bf16. The value is exactly the rounded one (x + (r - x) = r,
+    the difference being exact)."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()
 
 
 def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,

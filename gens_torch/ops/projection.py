@@ -96,3 +96,64 @@ def lookup_feature(pts: torch.Tensor, imgs: torch.Tensor, intrs: torch.Tensor,
     rgb_feat = torch.cat([torch.stack(rgb, dim=1)] + warped, dim=-1)
     mask = torch.stack(masks, dim=-1).all(dim=-1)
     return rgb_feat, ray_diff, mask
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched (..., 3, 3) @ (..., 3, 3) as broadcast multiply-sums, so it
+    runs in true f32 whatever the TF32 settings are."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(dim=-2)
+
+
+def surface_patch_warp(pts: torch.Tensor, normals: torch.Tensor,
+                       images: torch.Tensor, intrs: torch.Tensor,
+                       c2ws: torch.Tensor, patch_size: int = 11):
+    """Plane-induced homography patch warp for the MFC loss (counterpart of
+    ``surface_patch_warp`` in gens_tpu/ops/projection.py).
+
+    For each surface point with its normal in the REF CAMERA frame, the
+    tangent plane induces H_s = K_s (R_rel + t nᵀ / d) K_ref⁻¹ from the ref
+    view to source view s; a ``patch_size``² pixel patch around the point's
+    ref projection is sampled in every source view through H_s and in the
+    ref view itself (at detached pixel positions).
+
+    pts, normals (N, 3); images (V, H, W, C); intrs (V, 3, 3); c2ws
+    (V, 4, 4). Returns ``ref_patches (N, P², C)`` and ``src_patches
+    (S, N, P², C)``. Every product runs in true f32.
+    """
+    N = pts.shape[0]
+    S = intrs.shape[0] - 1
+    K_ref = intrs[0]
+    K_ref_inv = torch.linalg.inv(K_ref)
+    K_src = intrs[1:]
+    R_ref = c2ws[0, :3, :3]
+    C_ref = c2ws[0, :3, 3]
+    R_src_w2c = c2ws[1:, :3, :3].transpose(1, 2)
+    C_src = c2ws[1:, :3, 3]
+
+    pts_ref = apply_linear(pts - C_ref, R_ref.t())  # R_refᵀ (p - C_ref)
+    proj = apply_linear(pts_ref, K_ref)
+    disp = torch.sum(normals * pts_ref, dim=-1)
+    R_rel = _mm3(R_src_w2c, R_ref)  # (S, 3, 3)
+    t_rel = torch.sum(R_src_w2c * (C_ref[None] - C_src)[:, None, :], dim=-1)
+    tnT = t_rel[None, :, :, None] * normals[:, None, None, :]  # (N, S, 3, 3)
+    M = R_rel[None] + tnT / (disp[:, None, None, None] + 1e-10)
+    Hom = _mm3(_mm3(K_src[None], M), K_ref_inv)  # (N, S, 3, 3)
+
+    px = proj[:, 0] / (proj[:, 2] + 1e-8)
+    py = proj[:, 1] / (proj[:, 2] + 1e-8)
+    half = patch_size // 2
+    offs = torch.arange(-half, half + 1, dtype=pts.dtype, device=pts.device)
+    oy, ox = torch.meshgrid(offs, offs, indexing="ij")
+    offsets = torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+    pix = torch.stack([px, py], dim=-1)[:, None, :] + offsets[None]
+    pix_h = torch.cat([pix, torch.ones_like(pix[..., :1])], dim=-1)
+    warped = (Hom[:, :, None] * pix_h[:, None, :, None, :]).sum(dim=-1)
+    grid = warped[..., :2] / (warped[..., 2:] + 1e-8)  # (N, S, P², 2)
+
+    P2 = patch_size ** 2
+    src_patches = torch.stack([
+        bilerp(images[s + 1], grid[:, s].reshape(-1, 2)).reshape(N, P2, -1)
+        for s in range(S)])
+    ref_patches = bilerp(images[0], pix.detach().reshape(-1, 2)).reshape(
+        N, P2, -1)
+    return ref_patches, src_patches

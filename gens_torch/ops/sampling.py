@@ -97,10 +97,13 @@ def hierarchical_sample(rays_o: torch.Tensor, rays_d: torch.Tensor,
                         near: torch.Tensor, far: torch.Tensor,
                         sdf_fn: Callable[[torch.Tensor], torch.Tensor],
                         mask_any: torch.Tensor, n_samples: int,
-                        n_importance: int, up_sample_steps: int
+                        n_importance: int, up_sample_steps: int,
+                        perturb_noise: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """NeuS sampling: uniform init plus ``up_sample_steps`` rounds of
-    importance sampling at inv_s = 64·2^i, without perturbation (the val
+    importance sampling at inv_s = 64·2^i. ``perturb_noise`` (R, 1), drawn
+    uniform in [-0.5, 0.5) by the caller (training), shifts each ray's
+    uniform samples by noise·2/n_samples; None leaves them in place (the val
     path). ``sdf_fn`` maps (N, 3) points to (N,) SDF. Runs without
     autograd. Returns z_vals (R, n_samples + n_importance)."""
     with torch.no_grad():
@@ -109,6 +112,8 @@ def hierarchical_sample(rays_o: torch.Tensor, rays_d: torch.Tensor,
                            dtype=rays_o.dtype)
         z_vals = (near + (far - near) * t[None, :]).expand(
             R, n_samples).contiguous()
+        if perturb_noise is not None:
+            z_vals = z_vals + perturb_noise * 2.0 / n_samples
         if n_importance <= 0:
             return z_vals
 

@@ -1,0 +1,174 @@
+"""K1: the bilinear splat -- the CUDA kernel ``csrc/splat.cu``, its plain
+PyTorch version -- and :class:`BilerpAggSplat`, the volume aggregation's
+bilinear sampling whose backward is the splat.
+
+Counterpart of gens_tpu/ops/pallas_splat.py (``splat_bilinear``,
+``bilerp_agg_splat``). The splat is the adjoint of ``bilerp``::
+
+    dimg[y, x, c] = sum_n hat(v_n - y) * hat(u_n - x) * ct[n, c]
+
+with zeros padding and hat(t) = max(0, 1 - |t|); a query whose cotangent
+row is all zero contributes nothing. ``mm_dtype="bfloat16"`` reproduces the
+shipped TPU kernel's operand rounding (each term is bf16(hat_v) *
+bf16(hat_u * ct), summed in f32); ``"float32"`` is the exact adjoint.
+
+:func:`splat_bilinear` launches the kernel for CUDA tensors and takes
+:func:`splat_plain` only for tensors on the CPU; any other device raises.
+``splat_bilinear.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from gens_torch.ops.cuda_build import build_library
+from gens_torch.ops.interp import bilerp
+
+MM_DTYPES = ("float32", "bfloat16")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _check_mm_dtype(mm_dtype: str) -> None:
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be one of {MM_DTYPES}, got {mm_dtype!r}")
+
+
+def splat_plain(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
+                mm_dtype: str = "float32") -> torch.Tensor:
+    """The kernel's function in torch ops: four corner weights and one
+    ``index_add_`` into an (H·W, C) image. Returns (H, W, C) f32."""
+    _check_mm_dtype(mm_dtype)
+    H, W = hw
+    C = ct.shape[1]
+    ct = ct.float()
+    x, y = xy[:, 0], xy[:, 1]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    # corners of queries outside (-1, W) x (-1, H) (NaN included) carry
+    # zero weight: drop them before the long() conversion
+    live = ((ct != 0).any(dim=1) & (x > -1) & (x < W) & (y > -1) & (y < H))
+    x0f = torch.where(live, x0f, torch.zeros_like(x0f))
+    y0f = torch.where(live, y0f, torch.zeros_like(y0f))
+    x0, y0 = x0f.long(), y0f.long()
+    idxs, terms = [], []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        ix, iy = x0 + dx, y0 + dy
+        valid = live & (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+        # hat weights as the TPU kernel evaluates them: 1 - |u - column|
+        wu = torch.clamp(1.0 - (x - (x0f + dx)).abs(), min=0.0)
+        wv = torch.clamp(1.0 - (y - (y0f + dy)).abs(), min=0.0)
+        if mm_dtype == "bfloat16":
+            t = _bf16(wv)[:, None] * _bf16(wu[:, None] * ct)
+        else:
+            t = wv[:, None] * (wu[:, None] * ct)
+        terms.append(torch.where(valid[:, None], t, torch.zeros_like(t)))
+        idxs.append(iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1))
+    out = torch.zeros((H * W, C), dtype=torch.float32, device=ct.device)
+    out.index_add_(0, torch.cat(idxs), torch.cat(terms))
+    return out.reshape(H, W, C)
+
+
+# -- build and bind -----------------------------------------------------------
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library("splat.cu")[0])
+        lib.splat_bilinear_forward.restype = ctypes.c_int
+        lib.splat_bilinear_forward.argtypes = (
+            [ctypes.c_void_p] * 3
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p])
+        lib.splat_vector_atomics.restype = ctypes.c_int
+        lib.splat_vector_atomics.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def vector_atomics() -> bool:
+    """Whether the built kernel adds a float4 per corner (CUDA 12.1+)."""
+    return bool(_load().splat_vector_atomics())
+
+
+def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
+            mm_dtype: str) -> torch.Tensor:
+    if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
+        raise ValueError(f"K1 takes contiguous f32 ct (N, C), got "
+                         f"{tuple(ct.shape)} {ct.dtype}")
+    n, C = ct.shape
+    if (xy.dtype != torch.float32 or tuple(xy.shape) != (n, 2)
+            or not xy.is_contiguous()):
+        raise ValueError(f"K1 takes contiguous f32 xy ({n}, 2), got "
+                         f"{tuple(xy.shape)} {xy.dtype}")
+    if ct.device != xy.device:
+        raise ValueError("K1 inputs must be on one device")
+    if xy.data_ptr() % 8 or (C == 4 and ct.data_ptr() % 16):
+        raise ValueError("K1 reads xy as float2 and ct as float4: they must "
+                         "be 8- and 16-byte aligned")
+    H, W = int(hw[0]), int(hw[1])
+    out = torch.zeros((H, W, C), dtype=torch.float32, device=xy.device)
+    lib = _load()
+    stream = torch.cuda.current_stream(xy.device).cuda_stream
+    rc = lib.splat_bilinear_forward(
+        xy.data_ptr(), ct.data_ptr(), out.data_ptr(), n, H, W, C,
+        int(mm_dtype == "bfloat16"), stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+    splat_bilinear.launches += 1
+    return out
+
+
+def splat_bilinear(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
+                   mm_dtype: str = "float32") -> torch.Tensor:
+    """Splat ``ct (N, C)`` at pixel coords ``xy (N, 2)`` into an (H, W, C)
+    f32 image. CUDA tensors launch K1; CPU tensors take :func:`splat_plain`."""
+    _check_mm_dtype(mm_dtype)
+    if xy.device.type == "cuda":
+        return _launch(xy, ct, hw, mm_dtype)
+    if xy.device.type == "cpu":
+        return splat_plain(xy, ct, hw, mm_dtype)
+    raise ValueError(f"K1 has no path for device {xy.device}")
+
+
+splat_bilinear.launches = 0
+
+
+class BilerpAggSplat(torch.autograd.Function):
+    """``bilerp`` of the bf16-rounded ``image (H, W, C)`` at ``xy (N, 2)``
+    for the volume aggregation, whose backward splats the f32 cotangent
+    into the image through :func:`splat_bilinear` (the counterpart of
+    ``bilerp_agg_splat``). ``xy`` gets no gradient; only it is saved.
+
+    ``on_backward``, when set, is called as ``fn(xy, ct, hw, mm_dtype)``
+    with the splat's inputs before each backward (a measurement hook)."""
+
+    on_backward: Optional[Callable] = None
+
+    @staticmethod
+    def forward(ctx, image, xy, mm_dtype):
+        ctx.save_for_backward(xy)
+        ctx.hw = (image.shape[0], image.shape[1])
+        ctx.mm_dtype = mm_dtype
+        return bilerp(_bf16(image), xy)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (xy,) = ctx.saved_tensors
+        xy, ct = xy.contiguous(), ct.float().contiguous()
+        if BilerpAggSplat.on_backward is not None:
+            BilerpAggSplat.on_backward(xy, ct, ctx.hw, ctx.mm_dtype)
+        dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype)
+        return dimg, None, None
+
+
+def bilerp_agg_splat(image: torch.Tensor, xy: torch.Tensor,
+                     mm_dtype: str = "float32") -> torch.Tensor:
+    return BilerpAggSplat.apply(image, xy, mm_dtype)

@@ -1,9 +1,16 @@
-"""Validation orchestrator (counterpart of ``Runner.validate`` and
-``validate_all`` in gens_tpu/runner.py).
+"""Training and validation orchestrator (counterpart of ``Runner.train``,
+``Runner.validate`` and ``validate_all`` in gens_tpu/runner.py).
 
-Per scene: build the scene, extract the mesh through K3, render the val ray
-grid in fixed-size chunks, save images, and compute PSNR and depth errors.
-Training and finetune are later slices.
+Training: the epoch loop over the train dataset in a seeded random order,
+the matching-feature resync every ``match_sync_every`` epochs, the cosine
+anneal ratio, ``use_match_features`` from fractional epoch 5, the loss and
+PSNR logged every ``log_freq`` epochs, checkpoints every ``save_freq`` and
+validation every ``val_freq`` epochs. One device; the JAX runner's prefetch
+thread, preemption guard and sharded loop are later slices.
+
+Validation, per scene: build the scene, extract the mesh through K3, render
+the val ray grid in fixed-size chunks, save images, and compute PSNR and
+depth errors. Finetune is a later slice.
 
 The runner works on one explicit device. It sets float32 matmuls and
 convolutions to full precision (no TF32), as the JAX reference computes
@@ -27,10 +34,14 @@ from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.renderer import Scene
+from gens_torch.train.checkpoint import save_checkpoint
+from gens_torch.train.schedule import cos_anneal_ratio
+from gens_torch.train.step import TrainStep, sync_match_features
 
 
-def get_dataset(cfg):
-    """The val dataset named by a DatasetConfig (synthetic only so far)."""
+def get_dataset(cfg, mode: str = "val"):
+    """The dataset named by a DatasetConfig in ``mode`` "train" or "val"
+    (synthetic only so far)."""
     name = cfg.dataset_name.lower().replace("dataset", "")
     if name != "synthetic":
         raise NotImplementedError(
@@ -41,7 +52,8 @@ def get_dataset(cfg):
     return SyntheticDataset(
         n_scenes=len(cfg.scene) if cfg.scene else 4,
         n_views=cfg.num_src_view + 1, hw=tuple(cfg.img_hw),
-        val_res_level=cfg.val_res_level)
+        n_rays=cfg.n_rays, val_res_level=cfg.val_res_level,
+        n_pseudo_pts=min(cfg.n_pseudo_pts, 256), mode=mode)
 
 
 def subsample_to_val_grid(full: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -78,17 +90,89 @@ class Runner:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        # a fresh model is initialized from the seed (training without
+        # --resume); the scene order and the render draws have their own
+        torch.manual_seed(cfg.train.seed)
         self.model = GenSModel(cfg.model).to(self.device).eval()
+        self.rng = np.random.RandomState(cfg.train.seed)
+        self.generator = torch.Generator().manual_seed(cfg.train.seed)
         self.exp_dir = cfg.base_exp_dir
         os.makedirs(self.exp_dir, exist_ok=True)
         # seconds and rates of the last validate() call, per scene
         self.stats = []
+        # per training step: epoch, step, seconds and metrics
+        self.train_stats = []
 
     def run(self, resume: Optional[str] = None):
         if self.cfg.mode == "val":
             return self.validate_all(resume)
+        if self.cfg.mode == "train":
+            return self.train(resume)
         raise NotImplementedError(
             f"mode {self.cfg.mode!r} is not ported yet; see ROADMAP.md")
+
+    def train(self, resume: Optional[str] = None) -> Dict[str, float]:
+        """The generalizable training loop; ``resume`` continues from a
+        checkpoint (params, optimizer state, epoch and step). Returns the
+        mean metrics of the last epoch."""
+        cfg, tc = self.cfg, self.cfg.train
+        dataset = get_dataset(cfg.train_dataset, "train")
+        steps_per_epoch = len(dataset)
+        start_epoch, step, payload = 0, 0, None
+        if resume:
+            payload = load_params(self.model, resume)
+            start_epoch = int(payload["epoch"]) + 1
+            step = int(payload.get("step", 0))
+        step_fn = TrainStep(self.model, cfg, steps_per_epoch, start_step=step)
+        self.step_fn = step_fn
+        if payload is not None and payload.get("opt_state") is not None:
+            step_fn.optimizer.load_state_dict(payload["opt_state"])
+        log_every = max(1, int(tc.log_freq * steps_per_epoch))
+        ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
+        means: Dict[str, float] = {}
+        for epoch in range(start_epoch, tc.epochs):
+            if epoch % cfg.model.match_sync_every == 0:
+                sync_match_features(self.model)
+            sums: Dict[str, float] = {}
+            for batch, idx in enumerate(self.rng.permutation(steps_per_epoch)):
+                inputs = self._tensors(dataset[int(idx)])
+                frac = epoch + batch / steps_per_epoch
+                self._sync()
+                t0 = time.perf_counter()
+                metrics = step_fn(inputs, cos_anneal_ratio(frac, tc.anneal_end),
+                                  use_match_features=frac >= 5,
+                                  generator=self.generator)
+                # one device sync per step: every metric in one copy
+                scalars = dict(zip(metrics, torch.stack(
+                    list(metrics.values())).tolist()))
+                seconds = time.perf_counter() - t0
+                step += 1
+                if not np.isfinite(scalars["loss"]):
+                    save_checkpoint(os.path.join(ckpt_dir, "emergency.ckpt"),
+                                    epoch, step, self.model,
+                                    step_fn.optimizer)
+                    raise FloatingPointError(
+                        f"non-finite loss at epoch {epoch}: {scalars} -- "
+                        "emergency checkpoint saved")
+                self.train_stats.append({"epoch": epoch, "step": step,
+                                         "step_s": seconds, **scalars})
+                for k, v in scalars.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                if batch % log_every == 0:
+                    print(f"[train] epoch {epoch} step {step}: loss "
+                          f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "
+                          f"({seconds:.3f} s)", flush=True)
+            means = {k: v / steps_per_epoch for k, v in sums.items()}
+            print(f"[train] epoch {epoch} mean: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in means.items()), flush=True)
+            if (epoch + 1) % tc.save_freq == 0 or epoch + 1 >= tc.epochs:
+                save_checkpoint(os.path.join(ckpt_dir,
+                                             f"model_{epoch:03d}.ckpt"),
+                                epoch, step, self.model, step_fn.optimizer)
+            if (epoch + 1) % tc.val_freq == 0:
+                self.model.eval()
+                self.validate(epoch)
+        return means
 
     def validate_all(self, resume: Optional[str]) -> Dict[str, float]:
         if not resume:

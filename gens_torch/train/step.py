@@ -1,0 +1,142 @@
+"""The generalizable training step (counterpart of gens_tpu/train/step.py):
+forward, losses, and an Adam update with per-group learning rates under a
+warmup-cosine schedule.
+
+Groups, as the JAX ``_param_labels``: ``mlp`` (``sdf``, ``blending``) at
+``lr_mlp``; ``variance`` at ``lr_mlp · lr_variance_mult``; ``feat``
+(``feature``, ``reg``) at ``lr_feat``. The frozen ``match_feature`` copy is
+in no group (optax ``set_to_zero``). The schedule is a ``LambdaLR`` on
+``warmup_cosine_factor(step / steps_per_epoch, …)``, stepped after each
+update, so the first update uses the factor at step 0 as optax's count does.
+torch's Adam and optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the
+square root) compute the same update.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from gens_torch.config import Config, TrainConfig
+from gens_torch.losses import compute_losses
+from gens_torch.models.gens import GenSModel
+from gens_torch.train.schedule import warmup_cosine_factor
+
+# top-level module -> optimizer group
+GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
+          "feature": "feat", "reg": "feat"}
+PHASES = ("build_scene", "render", "backward", "optimizer")
+
+
+def param_groups(model: GenSModel, tcfg: TrainConfig) -> List[Dict]:
+    lrs = {"mlp": tcfg.lr_mlp,
+           "variance": tcfg.lr_mlp * tcfg.lr_variance_mult,
+           "feat": tcfg.lr_feat}
+    params = {g: [] for g in lrs}
+    for name, p in model.named_parameters():
+        top = name.split(".")[0]
+        if top == "match_feature":
+            continue
+        params[GROUPS[top]].append(p)
+    return [{"name": g, "params": params[g], "lr": lrs[g]} for g in lrs]
+
+
+def make_optimizer(model: GenSModel, tcfg: TrainConfig, steps_per_epoch: int,
+                   start_step: int = 0):
+    """(Adam, LambdaLR); ``start_step`` resumes the schedule's count."""
+    opt = torch.optim.Adam(param_groups(model, tcfg), betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def factor(step: int) -> float:
+        return warmup_cosine_factor((step + start_step) / steps_per_epoch,
+                                    tcfg.epochs, tcfg.warmup, tcfg.alpha)
+
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    mse = torch.mean((pred - target) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse + 1e-12))
+
+
+def sync_match_features(model: GenSModel) -> None:
+    """Copy the live feature net into the frozen matching copy."""
+    model.match_feature.load_state_dict(model.feature.state_dict())
+
+
+class _Marks:
+    """Phase boundaries: CUDA events on the card, the host clock on the
+    CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+        self.mark()
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b)
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+class TrainStep:
+    """``step(inputs, cos_anneal_ratio, use_match_features, ...)`` runs one
+    update of ``model`` and returns its metrics as 0-d tensors (the losses,
+    ``psnr`` and ``s_val``). After the call the parameters' ``.grad`` hold
+    this step's gradients. With ``timing=True`` the metrics also hold
+    ``phase_ms``: milliseconds of build_scene, render (with the losses),
+    backward and the optimizer update."""
+
+    def __init__(self, model: GenSModel, cfg: Config, steps_per_epoch: int,
+                 start_step: int = 0):
+        self.model = model
+        self.cfg = cfg
+        self.optimizer, self.scheduler = make_optimizer(
+            model, cfg.train, steps_per_epoch, start_step)
+
+    def __call__(self, inputs: Dict[str, torch.Tensor],
+                 cos_anneal_ratio: float, use_match_features: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 perturb_noise: Optional[torch.Tensor] = None,
+                 sparse_pts: Optional[torch.Tensor] = None,
+                 timing: bool = False) -> Dict:
+        model = self.model
+        model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        marks = _Marks(inputs["imgs"].device) if timing else None
+        scene = model.build_scene(inputs["imgs"], inputs["intrs"],
+                                  inputs["c2ws"])
+        if marks:
+            marks.mark()
+        outputs = model.render_train(scene, inputs, cos_anneal_ratio,
+                                     use_match_features, generator,
+                                     perturb_noise, sparse_pts)
+        losses = compute_losses(outputs, inputs, self.cfg.train.loss)
+        if marks:
+            marks.mark()
+        losses["loss"].backward()
+        if marks:
+            marks.mark()
+        self.optimizer.step()
+        self.scheduler.step()
+        if marks:
+            marks.mark()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["psnr"] = psnr(outputs["color_fine"].detach(),
+                               inputs["color"])
+        metrics["s_val"] = outputs["s_val"].detach().mean()
+        if marks:
+            metrics["phase_ms"] = dict(zip(PHASES, marks.ms()))
+        return metrics

@@ -1,7 +1,8 @@
-"""K3 on the card: the CUDA kernel against its plain PyTorch version on the
-trained weights, including ragged row counts, and the wrapper's input
-checks. Imports neither jax nor gens_tpu, so it runs on a machine with only
-PyTorch and the CUDA toolkit:
+"""K3 and K1 on the card: each CUDA kernel against its plain PyTorch
+version (K3 on the trained weights, K1 on random queries), including ragged
+sizes and, for K1, all-dead queries, and the wrappers' input checks.
+Imports neither jax nor gens_tpu, so it runs on a machine with only PyTorch
+and the CUDA toolkit:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -16,6 +17,7 @@ from gens_torch import convert
 from gens_torch.config import SDFNetConfig
 from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.ops import fused_mlp as fm
+from gens_torch.ops import splat as k1
 
 ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts", "quality_gen_r05_sharpen.pkl")
@@ -61,3 +63,77 @@ def test_wrapper_checks_inputs(folded):
         fm.sdf_mlp_fused(folded, x[:, :20], f)
     with pytest.raises(ValueError):
         fm.sdf_mlp_fused(folded, x.t().contiguous().t(), f)
+
+
+# K1 against its plain version, as a fraction of max |plain|: both add each
+# pixel's terms with float atomics in a run-dependent order
+K1_TOL = 1e-4
+
+
+def _queries(n, hw, c, seed, dead=0.3):
+    g = torch.Generator().manual_seed(seed)
+    H, W = hw
+    # a margin beyond the image on every side exercises the zeros padding
+    xy = torch.rand((n, 2), generator=g) * torch.tensor([W + 4.0, H + 4.0]) - 2
+    ct = torch.randn((n, c), generator=g)
+    ct[torch.rand((n,), generator=g) < dead] = 0.0
+    return xy.cuda(), ct.cuda()
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,hw,c", [(1, (30, 40), 4), (255, (30, 40), 4),
+                                    (100003, (120, 160), 4),
+                                    (4097, (60, 80), 3)])
+def test_splat_matches_plain(card, mm_dtype, n, hw, c):
+    xy, ct = _queries(n, hw, c, n)
+    before = k1.splat_bilinear.launches
+    got = k1.splat_bilinear(xy, ct, hw, mm_dtype)
+    torch.cuda.synchronize()
+    assert k1.splat_bilinear.launches == before + 1
+    ref = k1.splat_plain(xy, ct, hw, mm_dtype)
+    assert got.shape == (hw[0], hw[1], c)
+    assert float((got - ref).abs().max()) <= K1_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_splat_all_dead_queries_add_nothing(card):
+    xy, ct = _queries(5000, (30, 40), 4, 0)
+    # dead queries may carry any coordinates, non-finite ones included
+    xy[::2] = float("nan")
+    got = k1.splat_bilinear(xy, torch.zeros_like(ct), (30, 40))
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.cuda
+def test_bilerp_agg_splat_backward_on_card(card):
+    xy, _ = _queries(20000, (30, 40), 4, 1, dead=0.0)
+    img = torch.randn((30, 40, 4), generator=torch.Generator().manual_seed(2))
+    ct = torch.randn((20000, 4), generator=torch.Generator().manual_seed(3))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        im = img.detach().to(dev).requires_grad_(True)
+        out = k1.bilerp_agg_splat(im, xy.to(dev), "float32")
+        out.backward(ct.to(dev))
+        grads.append(im.grad.cpu())
+    assert float((grads[0] - grads[1]).abs().max()) <= K1_TOL * float(
+        grads[0].abs().max())
+
+
+@pytest.mark.cuda
+def test_splat_wrapper_checks_inputs(card):
+    xy, ct = _queries(64, (30, 40), 4, 0)
+    with pytest.raises(ValueError):
+        k1.splat_bilinear(xy.double(), ct, (30, 40))
+    with pytest.raises(ValueError):
+        k1.splat_bilinear(xy, ct.t().contiguous().t(), (30, 40))
+    with pytest.raises(ValueError):
+        k1.splat_bilinear(xy, ct, (30, 40), "float16")

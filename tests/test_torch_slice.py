@@ -167,8 +167,10 @@ def test_main_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main_mod.main(["--mode", "val", "--resume", "unused"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main_mod.main(["--mode", "train"])
     with pytest.raises(NotImplementedError):
-        main_mod.main(["--mode", "train", "--device", "cpu"])
+        main_mod.main(["--mode", "finetune", "--device", "cpu"])
 
 
 def test_port_imports_neither_jax_nor_gens_tpu():
