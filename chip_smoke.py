@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the gens_torch serving and training paths on one
-NVIDIA GPU.
+"""On-card smoke run of the gens_torch serving, training and finetune paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds K3 (gens_torch/csrc/sdf_mlp.cu) and K1 (gens_torch/csrc/splat.cu),
-   one nvcc each, started together, and the native isosurface, from the
-   sources in the checkout.
+2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K1 (gens_torch/csrc/splat.cu)
+   and K2 (gens_torch/csrc/window_fwd.cu), one nvcc each, started
+   together, and the native isosurface, from the sources in the checkout.
 3. The val path, through its entry point ``gens_torch.main --mode val``, at
    the full width of confs/dtu.yaml's model (256³…16³ cascade, 64+64
    samples, 4 up-sample rounds, 128-wide SDF MLP with 129 outputs) on the
@@ -30,7 +30,24 @@ NVIDIA GPU.
    in that run, in both operand dtypes, timed beside the plain version and
    ``grid_sampler_2d_backward``; one training step of a small seeded model
    on the GPU against the CPU (loss and gradients).
-6. Prints the card line, the kernels JSON line and, last, the ok line.
+6. The finetune path, through ``gens_torch.main --mode finetune`` on
+   confs/dtu_finetune.yaml from the trained artifact, with
+   ``volume.packed_bilerp: pallas`` and ``splat_impl: kernel2f``: a
+   synthetic scene of 3 views at 1152x1600, 512 rays, 64+64 samples, 6
+   steps (two permutations of the views), validation at the end (512³ mesh,
+   288x400 val rays). Counters zeroed just before and read just after; K2
+   must have launched 15 times, all in the volume build (5 scales x 3
+   views), K3 512 times. Every loss finite, the five volumes and the sdf,
+   blending and variance modules moved, the mesh not empty, the finetune
+   checkpoint read back equal. init_volumes ms, per-step ms, one step's
+   render / backward / optimizer ms (CUDA events), the validation's mesh
+   and render seconds and the peak device memory.
+7. K2 against its plain version on the scale-0 (image, xy) of one view
+   captured in that run, in both operand dtypes, timed beside the plain
+   version and ``F.grid_sample``; the raw volumes under "kernel2f" against
+   the gather forward ("auto") on the run's features; one finetune step of
+   a small seeded model on the GPU against the CPU.
+8. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -58,6 +75,16 @@ K1_TOL = 1e-4
 # (no TF32), the aggregation backward through K1's atomics on the GPU;
 # gradients compared as ||g_gpu - g_cpu|| / ||g_cpu|| per module
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-3, 2e-2
+# K2 against its plain version, as a fraction of max |plain|: the same
+# operand rounding and order of operations; nvcc may contract a multiply-add
+# into an FMA
+K2_TOL = 1e-5
+# the raw volumes under "kernel2f" against the gather forward: they differ
+# only by K2's bf16 rounding of hat_v, at most 2^-9 of each row weight, so a
+# sample moves by at most 2^-9 A (A = max |feature| of the scale): the mean
+# by at most 2^-9 A, the variance E[x²] - E[x]² by at most 4 * 2^-9 A²
+# (1% added for the f32 sums)
+AGG_EPS = 2.0 ** -9
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -84,6 +111,7 @@ def main() -> int:
     from gens_torch.mesh.extract import eval_sdf_grid
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
+    from gens_torch.ops import window_fwd as k2
     from gens_torch.ops.cuda_build import build_libraries
 
     card = subprocess.run(
@@ -94,7 +122,7 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_libraries(["sdf_mlp.cu", "splat.cu"])
+    built = build_libraries(["sdf_mlp.cu", "splat.cu", "window_fwd.cu"])
     isosurface.build_library()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
         f"{k} {v[1]} s" for k, v in built.items()) + ")", flush=True)
@@ -112,12 +140,13 @@ def main() -> int:
             "val_dataset.num_src_view=2", "val_dataset.img_hw=[480,640]",
             "val_dataset.val_res_level=4"]
     torch.cuda.reset_peak_memory_stats()
-    fm.sdf_mlp_fused.launches = 0
-    k1.splat_bilinear.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     runner = gens_main(argv)
     wall = time.perf_counter() - t0
     launches = fm.sdf_mlp_fused.launches
+    assert (k1.splat_bilinear.launches, k2.bilerp_window_fwd.launches) == (
+        0, 0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = runner.stats[0]
     cfg = runner.cfg
@@ -197,6 +226,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_train(dev)
 
+    # -- the finetune path, through its entry point ------------------------
+    k2_launches, captured, ft_runner, cams = finetune_path(gens_main, dev)
+    k2_row = k2_phase(captured, k2_launches)
+    del captured
+    check_agg_kernel2f(ft_runner, *cams)
+    del ft_runner
+    torch.cuda.empty_cache()
+    check_small_finetune(dev)
+
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
         "source": "gens_torch/csrc/sdf_mlp.cu",
@@ -205,13 +243,24 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k1_row]
+    }, k1_row, k2_row]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from gens_torch.ops import fused_mlp as fm
+    from gens_torch.ops import splat as k1
+    from gens_torch.ops import window_fwd as k2
+
+    fm.sdf_mlp_fused.launches = 0
+    k1.splat_bilinear.launches = 0
+    k2.bilerp_window_fwd.launches = 0
 
 
 def render_breakdown(runner) -> dict:
@@ -302,14 +351,16 @@ def train_path(gens_main, dev):
             'train_dataset.scene=["s0","s1","s2"]',
             "train_dataset.num_src_view=4", "train_dataset.img_hw=[480,640]",
             "train_dataset.n_rays=512", "train.epochs=1"]
+    from gens_torch.ops import window_fwd as k2
+
     k1.BilerpAggSplat.on_backward = capture
     torch.cuda.reset_peak_memory_stats()
-    fm.sdf_mlp_fused.launches = 0
-    k1.splat_bilinear.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     runner = gens_main(argv)
     wall = time.perf_counter() - t0
     launches = k1.splat_bilinear.launches
+    assert k2.bilerp_window_fwd.launches == 0
     k1.BilerpAggSplat.on_backward = None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -347,7 +398,8 @@ def train_path(gens_main, dev):
     phase = runner.step_fn(inputs, 1.0, generator=runner.generator,
                            timing=True)
     step_ms = [st["step_s"] * 1e3 for st in stats]
-    prof = profile_step(runner, inputs)
+    prof = profile_step(lambda: runner.step_fn(inputs, 1.0,
+                                               generator=runner.generator))
     # the profiler slows the host; the kernels' time against a plain step
     prof["device_share_of_later_steps"] = (
         prof["device_ms"] / float(np.mean(step_ms[1:])))
@@ -362,12 +414,12 @@ def train_path(gens_main, dev):
     return launches, captured
 
 
-def profile_step(runner, inputs) -> dict:
-    """One training step under torch.profiler: the device time summed over
-    the kernels and copies it ran (device-side events only: an operator's
-    own entry repeats the time of the kernels it launched), its share of
-    the step's wall time under the profiler, and the kernels that take the
-    most of it."""
+def profile_step(step) -> dict:
+    """One step (``step()``) under torch.profiler: the device time summed
+    over the kernels and copies it ran (device-side events only: an
+    operator's own entry repeats the time of the kernels it launched), its
+    share of the step's wall time under the profiler, and the kernels that
+    take the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -375,7 +427,7 @@ def profile_step(runner, inputs) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.step_fn(inputs, 1.0, generator=runner.generator)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -496,6 +548,300 @@ def check_small_train(dev) -> None:
         b = torch.cat([grads["gpu"][k].reshape(-1) for k in keys])
         errs[top] = float((a - b).norm() / a.norm())
     print("train step GPU vs CPU port: " + json.dumps({
+        "loss": loss, "loss_rel_err": rel, "grad_rel_err": errs}),
+        flush=True)
+    assert rel <= TRAIN_LOSS_RTOL, rel
+    assert all(e <= TRAIN_GRAD_TOL for e in errs.values()), errs
+
+
+def finetune_path(gens_main, dev):
+    """``gens_main --mode finetune`` at the DTU finetune shape with the K2
+    volume build; returns K2's launches in that run, the scale-0 (image,
+    xy, mm_dtype) of one view, the runner and the volume build's (intrs,
+    c2ws)."""
+    from gens_torch.convert import load_checkpoint, params_from_jax
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.ops import fused_mlp as fm
+    from gens_torch.ops import splat as k1
+    from gens_torch.ops import window_fwd as k2
+    from gens_torch.train.checkpoint import load_finetune_checkpoint
+
+    captured, build = {}, {}
+
+    def capture(image, xy, mm_dtype, impl):
+        if impl == "kernel2f" and tuple(image.shape[:2]) == (1152, 1600) \
+                and not captured:
+            captured.update(image=image.detach().clone(), xy=xy.clone(),
+                            mm_dtype=mm_dtype)
+
+    init_volumes = GenSModel.init_volumes
+
+    def counted_init_volumes(self, imgs, intrs, c2ws):
+        n0 = k2.bilerp_window_fwd.launches
+        out = init_volumes(self, imgs, intrs, c2ws)
+        build.update(k2=k2.bilerp_window_fwd.launches - n0,
+                     volumes=[v.clone() for v in out[0]], intrs=intrs,
+                     c2ws=c2ws)
+        return out
+
+    artifact = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
+    exp = os.path.join(REPO, "build", "chip_smoke_ft")
+    argv = ["--conf", os.path.join(REPO, "confs", "dtu_finetune.yaml"),
+            "--mode", "finetune", "--resume", artifact,
+            "--set", f"base_exp_dir={exp}",
+            "finetune_dataset.dataset_name=synthetic",
+            "finetune_dataset.num_src_view=2",
+            "finetune_dataset.img_hw=[1152,1600]",
+            "finetune_dataset.n_rays=512", "finetune_dataset.val_res_level=4",
+            "mesh_resolution=512", "train.epochs=6",
+            "model.volume.packed_bilerp=pallas",
+            "model.volume.splat_impl=kernel2f"]
+    k1.BilerpAggSplat.on_forward = capture
+    GenSModel.init_volumes = counted_init_volumes
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = gens_main(argv)
+    wall = time.perf_counter() - t0
+    launches = k2.bilerp_window_fwd.launches
+    k3_launches = fm.sdf_mlp_fused.launches
+    k1_launches = k1.splat_bilinear.launches
+    k1.BilerpAggSplat.on_forward = None
+    GenSModel.init_volumes = init_volumes
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    cfg = runner.cfg
+    rc = cfg.model.render
+    dims = tuple(cfg.model.volume.volume_dims)
+    assert dims == (256, 128, 64, 32, 16), dims
+    assert cfg.model.sdf_network.d_hidden == 128
+    assert (rc.n_samples, rc.n_importance, rc.up_sample_steps) == (64, 64, 4)
+    assert tuple(cfg.finetune_dataset.img_hw) == (1152, 1600)
+    n_views = cfg.finetune_dataset.num_src_view + 1
+    assert launches == len(dims) * n_views == 15, launches
+    assert build["k2"] == launches, build["k2"]  # all in the volume build
+    assert k3_launches == (512 // 64) ** 3, k3_launches
+    assert k1_launches == 0, k1_launches
+    assert captured, "no scale-0 K2 input was captured"
+    steps = [st for st in runner.finetune_stats if "loss" in st]
+    (val,) = [st for st in runner.finetune_stats if "val_step" in st]
+    assert len(steps) == 6 and sorted(st["vid"] for st in steps) == [
+        0, 0, 1, 1, 2, 2], steps
+    for st in steps:
+        bad = [k for k, v in st.items() if not np.isfinite(v)]
+        assert not bad, (st["step"], bad)
+    assert val["n_tris"] > 0, "empty mesh"
+    assert val["grid_finite"] and val["render_finite"]
+    assert val["rays"] == 288 * 400, val["rays"]
+
+    # every trained tensor moved from where the run started
+    step = runner.ft_step
+    for i, (a, b) in enumerate(zip(step.volumes, build["volumes"])):
+        assert float((a.detach() - b).abs().max()) > 0, f"volume {i}"
+    init = params_from_jax(load_checkpoint(artifact)["params"])
+    state = {k: v.detach().cpu() for k, v in runner.model.state_dict().items()}
+    for top in ("sdf", "blending", "variance"):
+        moved = max(float((state[k] - v).abs().max())
+                    for k, v in init.items() if k.split(".")[0] == top)
+        assert moved > 0, f"{top} did not move"
+    # the finetune checkpoint reads back equal
+    ckpt = os.path.join(runner.exp_dir, "checkpoints", "model_005.ckpt")
+    fresh = GenSModel(cfg.model)
+    _, arrays = load_finetune_checkpoint(fresh, ckpt)
+    for k, src in (("volumes", step.volumes),
+                   ("mask_volumes", step.mask_volumes),
+                   ("features", step.features)):
+        for a, b in zip(arrays[k], src):
+            assert torch.equal(a, b.detach().float().cpu()), k
+    for k, v in fresh.state_dict().items():
+        if k.split(".")[0] in ("sdf", "blending", "variance"):
+            assert torch.equal(v, state[k]), k
+
+    # one more step, timed by phase
+    from gens_torch.runner import get_dataset
+
+    ds = get_dataset(cfg.finetune_dataset, "finetune")
+    raw = ds.get_random_rays(1)
+    inputs = runner._tensors(raw)
+    inputs["view_ids"] = torch.from_numpy(raw["view_ids"]).to(dev)
+    phase = step(inputs, 1.0, generator=runner.generator, timing=True)
+    step_ms = [st["step_s"] * 1e3 for st in steps]
+    prof = profile_step(lambda: step(inputs, 1.0, generator=runner.generator))
+    prof["device_share_of_later_steps"] = (
+        prof["device_ms"] / float(np.mean(step_ms[1:])))
+    print("finetune path: " + json.dumps({
+        "wall_s": wall, "init_volumes_ms": runner.init_volumes_s * 1e3,
+        "first_step_ms": step_ms[0], "later_steps_ms": step_ms[1:],
+        "phase_ms": phase["phase_ms"], "profile": prof,
+        "val_mesh_grid_s": val["mesh_grid_s"],
+        "val_isosurface_s": val["isosurface_s"], "val_render_s": val["render_s"],
+        "val_rays": val["rays"], "val_rays_per_s": val["rays_per_s"],
+        "val_psnr": val["psnr"], "n_tris": val["n_tris"],
+        "peak_mem_gb": peak_gb, "k2_launches": launches,
+        "k2_launches_in_build": build["k2"], "k3_launches": k3_launches,
+        "losses": {k: v for k, v in steps[-1].items()
+                   if k not in ("step", "vid", "step_s")}}), flush=True)
+    return launches, captured, runner, (build["intrs"], build["c2ws"])
+
+
+def k2_phase(captured, launches) -> dict:
+    """K2 against its plain version on the captured scale-0 inputs, both
+    operand dtypes; times, the bound and ``F.grid_sample``. Returns the
+    kernels-line row."""
+    import torch.nn.functional as F
+
+    from gens_torch.ops import window_fwd as k2
+
+    image, xy = captured["image"], captured["xy"]
+    path_dtype = captured["mm_dtype"]
+    H, W, C = image.shape
+    n = xy.shape[0]
+    res = {}
+    for mm in ("float32", "bfloat16"):
+        img = image.to(torch.bfloat16 if mm == "bfloat16" else torch.float32
+                       ).contiguous()
+        got = k2.bilerp_window_fwd(img, xy, mm)
+        ref = k2.window_fwd_plain(img, xy, mm)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        assert torch.isfinite(got).all()
+        assert err <= K2_TOL * scale, (mm, err, scale)
+        res[mm] = {"max_abs_err": err, "max_abs_ref": scale,
+                   "ms": cuda_ms(lambda: k2.bilerp_window_fwd(img, xy, mm),
+                                 20),
+                   "plain_ms": cuda_ms(lambda: k2.window_fwd_plain(img, xy,
+                                                                   mm), 5)}
+        del got, ref
+    # yardstick: F.grid_sample of the f32 map (bilinear, zeros padding,
+    # align_corners) at the same queries; non-finite ones moved outside
+    inp = image.float().permute(2, 0, 1).unsqueeze(0).contiguous()
+    grid = torch.stack([xy[:, 0] / (W - 1) * 2 - 1,
+                        xy[:, 1] / (H - 1) * 2 - 1], -1)
+    grid = torch.nan_to_num(grid, nan=-3.0, posinf=-3.0, neginf=-3.0)
+    grid = grid.clamp(-3.0, 3.0).view(1, 1, n, 2)
+
+    def library():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib_err = float((library()[0, :, 0].t() - k2.window_fwd_plain(
+        image, xy, "float32")).abs().max())
+    library_ms = cuda_ms(library, 10)
+    live = int(((xy[:, 0] > -1) & (xy[:, 0] < W) & (xy[:, 1] > -1)
+                & (xy[:, 1] < H)).sum())
+    elem = 2 if path_dtype == "bfloat16" else 4
+    # each input read once (xy, the map), the output written once; per
+    # in-image query 12 operations for the corner weights and 9 per channel
+    n_bytes = 8 * n + 4 * C * n + elem * H * W * C
+    flops = (12 + 9 * C) * live
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    print("K2 scale 0, one view: " + json.dumps({
+        "queries": n, "in_image": live, "hw": [H, W], "channels": C,
+        "path_mm_dtype": path_dtype, "by_mm_dtype": res,
+        "library_ms": library_ms,
+        "library_max_abs_err_vs_plain_f32": lib_err,
+        "bound_ms": max(t_bytes, t_ops), "bytes": n_bytes, "flop": flops}),
+        flush=True)
+    return {
+        "name": "bilerp_window_fwd", "route": "cuda",
+        "source": "gens_torch/csrc/window_fwd.cu",
+        "replaces": "gens_tpu/ops/pallas_splat.py:164",
+        "launches": launches, "max_abs_err": res[path_dtype]["max_abs_err"],
+        "ms": res[path_dtype]["ms"], "plain_ms": res[path_dtype]["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def check_agg_kernel2f(runner, intrs, c2ws) -> None:
+    """The raw volumes of the finetune run's features under "kernel2f" (K2)
+    and under "auto" (the bf16 gather forward), on the card: per scale, the
+    mean channels within 2^-9 A and the variance channels within 4 * 2^-9
+    A² (A = max |feature|); the largest difference is also reported as a
+    share of max |raw|."""
+    from gens_torch.models.volume import (aggregate_scale, splat_dtype,
+                                          splat_impl_at)
+
+    vc = runner.cfg.model.volume
+    feats = runner.ft_step.features
+    errs = []
+    with torch.no_grad():
+        for i, dim in enumerate(vc.volume_dims):
+            raw = {impl: aggregate_scale(
+                feats[i], intrs, c2ws, dim, i, min_vis_view=vc.min_vis_view,
+                splat_mm_dtype=splat_dtype("pallas", dim, vc.splat_mm_dtype),
+                splat_impl=splat_impl_at("pallas", dim, impl))[0]
+                for impl in ("kernel2f", "auto")}
+            C = feats[i].shape[-1]
+            a = float(feats[i].abs().max())
+            diff = (raw["kernel2f"] - raw["auto"]).abs()
+            err_mean = float(diff[..., :C].max())
+            err_var = float(diff[..., C:].max())
+            scale = float(raw["auto"].abs().max())
+            errs.append({"dim": dim, "max_abs_diff_mean": err_mean,
+                         "max_abs_diff_var": err_var, "max_abs_feature": a,
+                         "max_abs_raw": scale,
+                         "max_diff_over_max_raw": max(err_mean, err_var)
+                         / scale})
+            assert err_mean <= 1.01 * AGG_EPS * a, errs[-1]
+            assert err_var <= 1.01 * 4 * AGG_EPS * a * a, errs[-1]
+            del raw, diff
+    print("raw volumes, kernel2f vs gather forward: " + json.dumps(errs),
+          flush=True)
+
+
+def check_small_finetune(dev) -> None:
+    """One finetune step of a tiny seeded model under "kernel2f" on the
+    GPU (K2 in the volume build) and on the CPU (its plain version), same
+    batch and draws: the loss and the volume and SDF gradients agree."""
+    from gens_torch.config import Config
+    from gens_torch.data.synthetic import SyntheticDataset
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.train.step import FinetuneStep
+
+    cfg = Config()
+    m = cfg.model
+    m.feature_network.d_enc = (8, 8, 8, 8, 8)
+    m.volume.volume_dims = (32, 16, 8, 4, 2)
+    m.volume.packed_bilerp, m.volume.splat_impl = "pallas", "kernel2f"
+    m.volume.splat_mm_dtype = "float32"
+    m.render.n_samples, m.render.n_importance = 16, 16
+    m.render.up_sample_steps, m.render.perturb = 2, 0.0
+    m.render.patch_size, m.render.n_sparse_pts = 5, 64
+    torch.manual_seed(0)
+    models = {"cpu": GenSModel(m)}
+    models["gpu"] = GenSModel(m).to(dev)
+    models["gpu"].load_state_dict(models["cpu"].state_dict())
+    ds = SyntheticDataset(1, 3, (64, 64), n_rays=64, mode="finetune")
+    images = ds.get_all_images()
+    raw = ds.get_random_rays(1)
+    sparse = torch.rand((64, 3), generator=torch.Generator().manual_seed(1))
+    loss, grads = {}, {}
+    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+        def tensors(r):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                    for k, v in r.items()
+                    if isinstance(v, np.ndarray) and v.dtype == np.float32}
+        im = tensors(images)
+        built = models[name].init_volumes(im["imgs"], im["intrs"],
+                                          im["c2ws"])
+        step = FinetuneStep(models[name], cfg, *built)
+        inputs = tensors(raw)
+        inputs["view_ids"] = torch.from_numpy(raw["view_ids"]).to(d)
+        out = step(inputs, 0.5, sparse_pts=sparse * 2 - 1)
+        loss[name] = float(out["loss"])
+        grads[name] = {
+            "volumes": torch.cat([v.grad.reshape(-1).cpu()
+                                  for v in step.volumes]),
+            "sdf": torch.cat([p.grad.reshape(-1).cpu()
+                              for p in models[name].sdf.parameters()])}
+    rel = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    errs = {k: float((grads["cpu"][k] - grads["gpu"][k]).norm()
+                     / grads["cpu"][k].norm()) for k in grads["cpu"]}
+    print("finetune step GPU vs CPU port: " + json.dumps({
         "loss": loss, "loss_rel_err": rel, "grad_rel_err": errs}),
         flush=True)
     assert rel <= TRAIN_LOSS_RTOL, rel

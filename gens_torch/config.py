@@ -7,7 +7,7 @@ Defaults reproduce the published GenS DTU recipe.
 
 Keys that only choose a TPU memory layout are accepted and change no math
 in the port: ``volume.packed_bilerp`` (except its bf16 rounding and the
-splat backward, below), ``volume.splat_window``, ``volume.splat_impl``,
+splat backward, below), ``volume.splat_window``,
 ``volume.agg_remat``, ``sdf_network.packed_trilerp``,
 ``sdf_network.fused_*``, ``color_network.packed_bilerp``,
 ``color_network.fused_pyramid`` and ``compilation_cache_dir``.
@@ -22,6 +22,17 @@ activations), ``sdf_network.volume_dtype`` (the cascade inside the trilerp),
 feature values and whose backward is the splat K1, in f32 or, under
 "pallas" at scales whose dim is a multiple of 16, with the operand
 rounding of ``volume.splat_mm_dtype``.
+
+``volume.splat_impl`` is honoured at those scales, as the JAX function
+resolves it: "auto" and "kernel2" sample the bf16-rounded map and take K1
+in the shipped "fused_u" rounding (bf16(hat_v)·bf16(hat_u·ct)); "kernel"
+the same forward and K1 in the r03 "per_channel" rounding
+(bf16(hat_v·ct)·bf16(hat_u)); "kernel2f" the K2 forward
+(``ops/window_fwd.py``: bf16(hat_v) against the bf16 map, or the exact
+bilerp under ``splat_mm_dtype`` float32) and K1 in the fused_u rounding;
+"adjoint" the bf16-rounded forward and the exact f32 adjoint whatever
+``splat_mm_dtype`` says. "auto" resolves as the JAX function does on a
+TPU (on its CPU, JAX resolves it to "adjoint").
 """
 
 from __future__ import annotations
@@ -61,13 +72,17 @@ class VolumeConfig:
     # "table_bf16" | "pallas"); in the port "table_bf16" and "pallas" read
     # bf16-rounded feature maps and take the splat K1 as their backward
     packed_bilerp: object = "table"
-    # TPU layout keys of the JAX aggregation backward (splat window, splat
-    # kernel choice, remat policy): accepted, unused
+    # TPU layout key of the JAX splat kernels' window: accepted, unused
+    # (the port's kernels need no window)
     splat_window: object = "auto"
+    # the aggregation's sampling under packed_bilerp "pallas" ("auto" |
+    # "kernel2": bf16 forward, K1 fused_u rounding; "kernel": K1 per_channel
+    # rounding; "kernel2f": K2 forward; "adjoint": exact f32 backward)
     splat_impl: str = "auto"
     # K1's operand rounding under packed_bilerp "pallas" ("bfloat16" |
     # "float32", the exact adjoint)
     splat_mm_dtype: str = "bfloat16"
+    # TPU remat policy of the JAX aggregation: accepted, unused
     agg_remat: str = "full"
     # cross-view aggregation: "mean_var" (reference live path) or "adaptive"
     # (learned softmax weighting — the reference's dead agg_adaptive made

@@ -10,6 +10,10 @@
 * :func:`params_to_jax` is the inverse of :func:`params_from_jax`: a port
   state dict as the JAX parameter tree (numpy f32 leaves, flax names), the
   ``params`` of the port's training checkpoints.
+* :func:`finetune_params_from_jax` / :func:`finetune_params_to_jax` carry
+  the finetune-format ``params`` -- ``volumes``, ``mask_volumes`` and
+  ``features`` (lists of arrays) beside the ``sdf``, ``blending`` and
+  ``variance`` subtrees -- in both directions.
 
 Layout changes at the bridge: flax Conv kernels (kh, kw, in, out) become
 torch (out, in, kh, kw); ConvTranspose kernels become (in, out, kh, kw),
@@ -26,7 +30,7 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +149,39 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     state.update(_blending_state(tree["blending"]))
     state["variance.variance"] = _t(_inner(tree["variance"])["variance"])
     return state
+
+
+FINETUNE_ARRAYS = ("volumes", "mask_volumes", "features")
+FINETUNE_MODULES = ("sdf", "blending", "variance")
+
+
+def _mlp_state(tree) -> Dict[str, torch.Tensor]:
+    state = sdf_state(tree["sdf"])
+    state.update(_blending_state(tree["blending"]))
+    state["variance.variance"] = _t(_inner(tree["variance"])["variance"])
+    return state
+
+
+def finetune_params_from_jax(tree: Dict[str, Any]
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, List[torch.Tensor]]]:
+    """A finetune-format JAX ``params`` tree -> (the state of the model's
+    sdf, blending and variance modules, {volumes, mask_volumes, features}
+    as f32 tensor lists)."""
+    arrays = {k: [_t(a) for a in tree[k]] for k in FINETUNE_ARRAYS}
+    return _mlp_state(tree), arrays
+
+
+def finetune_params_to_jax(model: torch.nn.Module,
+                           arrays: Dict[str, Sequence[torch.Tensor]]
+                           ) -> Dict[str, Any]:
+    """The inverse of :func:`finetune_params_from_jax`: the model's sdf,
+    blending and variance modules and the finetune arrays as the JAX
+    finetune ``params`` tree (numpy f32)."""
+    tree = params_to_jax({k: v for k, v in model.state_dict().items()
+                          if k.split(".")[0] in FINETUNE_MODULES})
+    tree.update({k: [_np(a) for a in arrays[k]] for k in FINETUNE_ARRAYS})
+    return tree
 
 
 def load_params(model: torch.nn.Module, source) -> Dict[str, Any]:

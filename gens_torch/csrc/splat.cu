@@ -10,10 +10,12 @@
 // zeros padding (a corner outside the image contributes nothing) and
 // hat(t) = max(0, 1 - |t|), evaluated as the TPU kernel does: 1 - |u - j|
 // for the corner column j. A query whose cotangent row is all zero is
-// skipped, as the TPU kernel's live test does. mm_bf16 reproduces the
-// shipped TPU rounding (its "fused_u" layout): each term is
-// bf16(hat_v) * bf16(hat_u * ct[n, c]), accumulated in f32; otherwise every
-// term is exact f32.
+// skipped, as the TPU kernel's live test does. mm_bf16 reproduces the TPU
+// kernel's operand rounding, which depends on its layout: the shipped
+// "fused_u" layout rounds each term as bf16(hat_v) * bf16(hat_u * ct[n, c]),
+// the r03 "per_channel" layout (per_channel = 1) as
+// bf16(hat_v * ct[n, c]) * bf16(hat_u); both accumulate in f32. Without
+// mm_bf16 every term is exact f32 and the layout plays no part.
 //
 // Why atomics and not the TPU's window: the TPU has no scatter, so its
 // kernel turns the splat into dense windowed matmuls into a VMEM-resident
@@ -92,7 +94,16 @@ __device__ __forceinline__ bool corners(float2 uv, int H, int W, Corners& c) {
   return true;
 }
 
-template <bool kBf16>
+// one term of the splat: the corner weights wv (row) and wu (column) times
+// the cotangent g, with the operand rounding of the TPU layout
+template <bool kBf16, bool kPerChannel>
+__device__ __forceinline__ float term(float wv, float wu, float g) {
+  if (!kBf16) return wv * (wu * g);
+  if (kPerChannel) return round_bf16(wv * g) * round_bf16(wu);
+  return round_bf16(wv) * round_bf16(wu * g);
+}
+
+template <bool kBf16, bool kPerChannel>
 __global__ void __launch_bounds__(THREADS)
 splat4_kernel(const float2* __restrict__ xy, const float4* __restrict__ ct,
               float* __restrict__ out, long long n, int H, int W) {
@@ -106,26 +117,22 @@ splat4_kernel(const float2* __restrict__ xy, const float4* __restrict__ ct,
   for (int dy = 0; dy < 2; ++dy) {
     int iy = c.y0 + dy;
     if (iy < 0 || iy >= H) continue;
-    float wv = kBf16 ? round_bf16(c.wv[dy]) : c.wv[dy];
+    float wv = c.wv[dy];
 #pragma unroll
     for (int dx = 0; dx < 2; ++dx) {
       int ix = c.x0 + dx;
       if (ix < 0 || ix >= W) continue;
       float wu = c.wu[dx];
-      float4 t;
-      if (kBf16) {
-        t = make_float4(wv * round_bf16(wu * g.x), wv * round_bf16(wu * g.y),
-                        wv * round_bf16(wu * g.z), wv * round_bf16(wu * g.w));
-      } else {
-        t = make_float4(wv * (wu * g.x), wv * (wu * g.y), wv * (wu * g.z),
-                        wv * (wu * g.w));
-      }
+      float4 t = make_float4(term<kBf16, kPerChannel>(wv, wu, g.x),
+                             term<kBf16, kPerChannel>(wv, wu, g.y),
+                             term<kBf16, kPerChannel>(wv, wu, g.z),
+                             term<kBf16, kPerChannel>(wv, wu, g.w));
       add4(out + 4 * (static_cast<long long>(iy) * W + ix), t);
     }
   }
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kPerChannel>
 __global__ void __launch_bounds__(THREADS)
 splat_kernel(const float2* __restrict__ xy, const float* __restrict__ ct,
              float* __restrict__ out, long long n, int H, int W, int C) {
@@ -140,18 +147,29 @@ splat_kernel(const float2* __restrict__ xy, const float* __restrict__ ct,
   for (int dy = 0; dy < 2; ++dy) {
     int iy = c.y0 + dy;
     if (iy < 0 || iy >= H) continue;
-    float wv = kBf16 ? round_bf16(c.wv[dy]) : c.wv[dy];
+    float wv = c.wv[dy];
     for (int dx = 0; dx < 2; ++dx) {
       int ix = c.x0 + dx;
       if (ix < 0 || ix >= W) continue;
       float wu = c.wu[dx];
       float* p = out + C * (static_cast<long long>(iy) * W + ix);
-      for (int k = 0; k < C; ++k) {
-        float t = kBf16 ? wv * round_bf16(wu * g[k]) : wv * (wu * g[k]);
-        atomicAdd(p + k, t);
-      }
+      for (int k = 0; k < C; ++k)
+        atomicAdd(p + k, term<kBf16, kPerChannel>(wv, wu, g[k]));
     }
   }
+}
+
+template <bool kBf16, bool kPerChannel>
+void launch(const float* xy, const float* ct, float* out, long long n, int H,
+            int W, int C, cudaStream_t stream) {
+  long long blocks = (n + THREADS - 1) / THREADS;
+  const float2* xy2 = reinterpret_cast<const float2*>(xy);
+  if (C == 4)
+    splat4_kernel<kBf16, kPerChannel><<<blocks, THREADS, 0, stream>>>(
+        xy2, reinterpret_cast<const float4*>(ct), out, n, H, W);
+  else
+    splat_kernel<kBf16, kPerChannel><<<blocks, THREADS, 0, stream>>>(
+        xy2, ct, out, n, H, W, C);
 }
 
 }  // namespace
@@ -163,25 +181,18 @@ int splat_vector_atomics() { return kVectorAtomics ? 1 : 0; }
 
 // xy (n, 2) f32, ct (n, C) f32, out (H, W, C) f32 zeroed by the caller.
 // xy must be 8-byte aligned, and for C = 4 ct and out 16-byte aligned (the
-// wrapper checks).
+// wrapper checks). per_channel selects the r03 layout's rounding under
+// mm_bf16.
 int splat_bilinear_forward(const float* xy, const float* ct, float* out,
                            long long n, int H, int W, int C, int mm_bf16,
-                           cudaStream_t stream) {
+                           int per_channel, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  long long blocks = (n + THREADS - 1) / THREADS;
-  const float2* xy2 = reinterpret_cast<const float2*>(xy);
-  if (C == 4) {
-    const float4* ct4 = reinterpret_cast<const float4*>(ct);
-    if (mm_bf16)
-      splat4_kernel<true><<<blocks, THREADS, 0, stream>>>(xy2, ct4, out, n, H, W);
-    else
-      splat4_kernel<false><<<blocks, THREADS, 0, stream>>>(xy2, ct4, out, n, H, W);
-  } else {
-    if (mm_bf16)
-      splat_kernel<true><<<blocks, THREADS, 0, stream>>>(xy2, ct, out, n, H, W, C);
-    else
-      splat_kernel<false><<<blocks, THREADS, 0, stream>>>(xy2, ct, out, n, H, W, C);
-  }
+  if (!mm_bf16)
+    launch<false, false>(xy, ct, out, n, H, W, C, stream);
+  else if (per_channel)
+    launch<true, true>(xy, ct, out, n, H, W, C, stream);
+  else
+    launch<true, false>(xy, ct, out, n, H, W, C, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

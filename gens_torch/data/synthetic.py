@@ -1,6 +1,7 @@
 """Synthetic analytic-SDF scene: Lambertian unit-ish sphere rendered from a
-camera ring (own copy of gens_tpu/data/synthetic.py; the finetune protocol
-and the quality-metric helpers come with later slices).
+camera ring (own copy of gens_tpu/data/synthetic.py, with its train, val
+and finetune protocols; the quality-metric helpers come with a later
+slice).
 
 The reference has no test suite; SURVEY.md §4 recommends a tiny synthetic
 scene (analytic SDF + ray-traced views) as the end-to-end fixture. This
@@ -187,18 +188,27 @@ def make_scene(n_views: int = 3, hw=(64, 64), radius: float = 0.5,
 
 class SyntheticDataset:
     """Dataset over the analytic sphere scene for the train and val item
-    protocols, so the Runner runs with no data on disk (the finetune
-    protocol comes with finetuning).
+    protocols and the finetune protocol (``get_all_images``,
+    ``get_random_rays``, ``get_rays_at``), so the Runner runs with no data
+    on disk.
 
-    Train items draw ``n_rays`` reference-view pixels and ``n_pseudo_pts``
-    surface points from one ``numpy.random.RandomState(seed)``, in the JAX
-    dataset's order, so both packages give the same batches for a seed."""
+    Items draw ``n_rays`` pixels and ``n_pseudo_pts`` surface points from
+    one ``numpy.random.RandomState(seed)``, in the JAX dataset's order, so
+    both packages give the same batches for a seed.
+
+    The finetune protocol follows the DTU one (``data/dtu_finetune.py`` of
+    the JAX package): a batch on view ``vid`` holds the images and cameras
+    in the order [vid, the others], and its rays and colours come from view
+    ``vid``. The JAX fixture rotates only ``view_ids`` and keeps images,
+    cameras and rays on view 0, so the two agree at ``vid = 0`` and the
+    port's batch at ``vid != 0`` is the JAX one reordered."""
 
     def __init__(self, n_scenes: int = 1, n_views: int = 3, hw=(64, 64),
                  n_rays: int = 64, val_res_level: int = 4,
                  n_pseudo_pts: int = 64, mode: str = "val", seed: int = 0):
         self.n_scenes = n_scenes
         self.n_views = n_views
+        self.num_views = n_views
         self.hw = hw
         self.n_rays = n_rays
         self.val_res_level = val_res_level
@@ -211,18 +221,29 @@ class SyntheticDataset:
     def __len__(self):
         return self.n_scenes
 
-    def _scene(self, idx, n_rays):
+    def view_order(self, vid: int):
+        return [vid] + [i for i in range(self.n_views) if i != vid]
+
+    def _scene(self, idx, n_rays, vid: int = 0):
         """Per-index scene with the images and cameras raytraced once and
-        cached, as a dataset on disk would hold them; only the ray batch is
-        drawn anew per call."""
+        cached, as a dataset on disk would hold them, in the view order of
+        ``vid``; only the ray batch, on view ``vid``, is drawn anew per
+        call."""
         if idx not in self._cache:
             self._cache[idx] = make_scene(n_views=self.n_views, hw=self.hw,
                                           n_rays=1,
                                           seed=self._seed + 7919 * idx)
         base = self._cache[idx]
         out = dict(base)
+        order = self.view_order(vid)
+        for k in ("imgs", "intrs", "c2ws", "view_masks"):
+            out[k] = base[k][order]
+        # make_scene's near/far, from the distance of view vid's camera
+        dist = np.linalg.norm(out["c2ws"][0, :3, 3])
+        out["near"] = np.full((1, 1), 0.95 * (dist - 1.0), np.float32)
+        out["far"] = np.full((1, 1), 1.05 * (dist + 1.0), np.float32)
         H, W = self.hw
-        intr, c2w = base["intrs"][0], base["c2ws"][0]
+        intr, c2w = out["intrs"][0], out["c2ws"][0]
         px = self.rng.randint(0, W, size=n_rays).astype(np.float32)
         py = self.rng.randint(0, H, size=n_rays).astype(np.float32)
         pix = np.stack([px, py, np.ones_like(px)], axis=-1)
@@ -231,7 +252,7 @@ class SyntheticDataset:
         out["rays_d"] = (d @ c2w[:3, :3].T).astype(np.float32)
         out["rays_o"] = np.broadcast_to(
             c2w[:3, 3], out["rays_d"].shape).astype(np.float32).copy()
-        out["color"] = base["imgs"][0][py.astype(int), px.astype(int)]
+        out["color"] = out["imgs"][0][py.astype(int), px.astype(int)]
         return out
 
     def __getitem__(self, idx):
@@ -253,10 +274,13 @@ class SyntheticDataset:
             dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
             out["pseudo_pts"] = (dirs * radius).astype(np.float32)
             return out
+        return self._val_item(idx, 0)
 
+    def _val_item(self, idx, vid: int):
+        """The full val ray grid on view ``vid`` with its analytic depth."""
         H, W = self.hw
         stride = self.val_res_level
-        out = self._scene(idx, 1)
+        out = self._scene(idx, 1, vid)
         radius = out.pop("radius")
         tx = np.linspace(0, W - 1, W // stride, dtype=np.float32)
         ty = np.linspace(0, H - 1, H // stride, dtype=np.float32)
@@ -300,6 +324,25 @@ class SyntheticDataset:
             "scale_mat": np.eye(4, dtype=np.float32),
             "scene": f"sphere{idx}",
             "file_name": f"sphere{idx}",
-            "view_ids": np.arange(self.n_views, dtype=np.int64),
+            "view_ids": np.asarray(self.view_order(vid), np.int64),
         })
         return out
+
+    # -- finetune protocol ------------------------------------------------
+
+    def get_all_images(self):
+        """Every view of scene 0, for the one-shot volume build."""
+        out = self._scene(0, 1)
+        return {"imgs": out["imgs"], "intrs": out["intrs"],
+                "c2ws": out["c2ws"]}
+
+    def get_random_rays(self, vid: int):
+        """A random ray batch on view ``vid``."""
+        out = self._scene(0, self.n_rays, vid)
+        out.pop("radius")
+        out["view_ids"] = np.asarray(self.view_order(vid), np.int64)
+        return out
+
+    def get_rays_at(self, vid: int):
+        """The full val ray grid on view ``vid``."""
+        return self._val_item(0, vid)

@@ -3,10 +3,12 @@
 Usage:
     python -m gens_torch.main --conf confs/dtu.yaml --mode train [--resume CKPT]
     python -m gens_torch.main --conf confs/dtu.yaml --mode val --resume CKPT
+    python -m gens_torch.main --conf confs/dtu_finetune.yaml --mode finetune \
+        --resume CKPT [--scene scan24 --ref_view 23]
     python -m gens_torch.main ... --device cpu   # the CPU, on request only
 
 The port runs on the card: without a CUDA device and without
-``--device cpu`` it raises. ``--mode finetune`` is a later slice.
+``--device cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -38,16 +40,23 @@ def main(argv=None) -> Runner:
                         choices=["train", "val", "finetune"])
     parser.add_argument("--resume", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--scene", type=str, default=None,
+                        help="finetune: the scene (finetune_dataset.scene)")
+    parser.add_argument("--ref_view", type=int, default=None,
+                        help="finetune: the reference view")
     parser.add_argument("--set", dest="overrides", nargs="*", default=[],
                         help="dotted overrides, e.g. mesh_resolution=256")
     args = parser.parse_args(argv)
-    if args.mode == "finetune":
-        raise NotImplementedError(
-            "--mode finetune is not ported yet; see ROADMAP.md")
     device = resolve_device(args.device)
+    if args.mode == "finetune" and not args.resume:
+        raise ValueError("--mode finetune needs a checkpoint (--resume)")
 
     cfg = load_config(args.conf, args.overrides)
     cfg.mode = args.mode
+    if args.scene is not None:
+        cfg.finetune_dataset.scene = (args.scene,)
+    if args.ref_view is not None:
+        cfg.finetune_dataset.ref_view = (args.ref_view,)
     runner = Runner(cfg, device)
     runner.metrics = runner.run(resume=args.resume)
     print({k: round(v, 6) for k, v in runner.metrics.items()}, flush=True)

@@ -3,6 +3,11 @@ modules, builds a ``Scene`` for the generalizable regime -- feature net ->
 cross-view volume aggregation -> 3D U-Net -- and runs the training forward
 (build the scene under autograd, render the ray batch, pseudo-point SDF).
 
+In the finetune regime the volumes are built once from all views
+(:meth:`GenSModel.init_volumes`) and become parameters of their own; the
+masks and features stay frozen, and :meth:`GenSModel.forward_finetune`
+renders from them.
+
 The JAX parameter tree's top-level keys map to submodules: ``feature``,
 ``match_feature`` (the frozen matching copy), ``reg``, ``sdf``,
 ``blending`` and ``variance`` (``convert.py`` does the mapping).
@@ -14,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from gens_torch.config import ModelConfig
 from gens_torch.models.blending_net import (BlendingNetwork,
@@ -22,7 +28,7 @@ from gens_torch.models.feature_net import FeatureNetwork
 from gens_torch.models.reg_net import RegNetwork
 from gens_torch.models.renderer import Renderer, Scene
 from gens_torch.models.sdf_net import SDFNetwork
-from gens_torch.models.volume import agg_mean_var
+from gens_torch.models.volume import agg_mean_var, voxel_grid
 from gens_torch.ops.interp import combine_mask_cascade
 
 
@@ -70,7 +76,8 @@ class GenSModel(nn.Module):
             features, intrs, c2ws, v.volume_dims,
             min_vis_view=v.min_vis_view,
             out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
-            packed_bilerp=v.packed_bilerp, splat_mm_dtype=v.splat_mm_dtype)
+            packed_bilerp=v.packed_bilerp, splat_mm_dtype=v.splat_mm_dtype,
+            splat_impl=v.splat_impl)
         return self.reg(raw_vols), mask_vols
 
     def build_scene(self, imgs: torch.Tensor, intrs: torch.Tensor,
@@ -116,3 +123,63 @@ class GenSModel(nn.Module):
             outputs["pseudo_sdf"] = self.renderer.pseudo_sdf(
                 scene, inputs["pseudo_pts"])
         return outputs
+
+    # -- finetune regime (volumes as parameters) ------------------------------
+
+    @torch.no_grad()
+    def init_volumes(self, imgs: torch.Tensor, intrs: torch.Tensor,
+                     c2ws: torch.Tensor
+                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                List[torch.Tensor]]:
+        """The one-shot volume build from all views of a scene: (volumes,
+        mask volumes, features), with no graph. The volumes become the
+        finetune's parameters; the masks and features stay frozen."""
+        features = self.extract_features(imgs)
+        volumes, mask_vols = self.build_volumes(features, intrs, c2ws)
+        return ([v.detach() for v in volumes], list(mask_vols),
+                [f.detach() for f in features])
+
+    @torch.no_grad()
+    def filter_volume(self, volumes: Sequence[torch.Tensor],
+                      mask_volumes: Sequence[torch.Tensor],
+                      thresh: float = 0.1) -> List[torch.Tensor]:
+        """Narrow-band mask pruning (the reference implemented it and left
+        its call disabled; so does the runner): keep the voxels of the
+        finest grid whose |SDF| is below ``thresh`` and that lie inside the
+        unit sphere, dilated by one voxel, and AND that into every cascade
+        mask with a nearest 2x downsampling between scales."""
+        dim = mask_volumes[0].shape[0]
+        pts = voxel_grid(dim, mask_volumes[0].device)
+        chunk = min(pts.shape[0], 128 ** 3 // 8)
+        band = torch.cat([
+            (self.sdf.sdf(pts[i:i + chunk], volumes).abs() < thresh).float()
+            for i in range(0, pts.shape[0], chunk)])
+        inside = (torch.linalg.norm(pts, dim=-1) < 1.0).float()
+        mask = (band * inside).reshape(1, 1, dim, dim, dim)
+        mask = F.max_pool3d(mask, 3, stride=1, padding=1)[0, 0]
+        out = []
+        for m in mask_volumes:
+            out.append(m * mask)
+            mask = mask[::2, ::2, ::2]
+        return out
+
+    def forward_finetune(self, volumes: Sequence[torch.Tensor],
+                         mask_volumes: Sequence[torch.Tensor],
+                         features: Sequence[torch.Tensor],
+                         inputs: Dict[str, torch.Tensor],
+                         cos_anneal_ratio: float,
+                         generator: Optional[torch.Generator] = None,
+                         perturb_noise: Optional[torch.Tensor] = None,
+                         sparse_pts: Optional[torch.Tensor] = None) -> Dict:
+        """One finetune forward (the JAX ``forward_finetune``): the frozen
+        features gathered by ``inputs["view_ids"]`` serve as the features
+        and the matching features of a scene on the trainable ``volumes``;
+        render with the training outputs."""
+        view_ids = inputs["view_ids"]
+        feats = [f.index_select(0, view_ids) for f in features]
+        scene = Scene(volumes=list(volumes), mask_volumes=list(mask_volumes),
+                      features=feats, match_features=feats,
+                      imgs=inputs["imgs"], intrs=inputs["intrs"],
+                      c2ws=inputs["c2ws"])
+        return self.render_train(scene, inputs, cos_anneal_ratio, True,
+                                 generator, perturb_noise, sparse_pts)

@@ -18,7 +18,10 @@ Under ``packed_bilerp`` "table_bf16" and "pallas" the JAX forward reads a
 bf16 copy of the feature map while its backward stays f32 (the mixed-table
 tangents, the Pallas splat). Here :class:`~gens_torch.ops.splat.BilerpAggSplat`
 does both: bilerp of the bf16-rounded map forward, K1 backward. Autograd of
-a plain ``.to(bf16)`` round trip would round the cotangent to bf16.
+a plain ``.to(bf16)`` round trip would round the cotangent to bf16. Under
+"pallas", ``volume.splat_impl`` chooses the forward (K2 under "kernel2f")
+and K1's rounding at the scales where the JAX kernels run (dim a multiple
+of 16); the other scales take the "table_bf16" path, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from gens_torch.ops.interp import bilerp
 from gens_torch.ops.projection import apply_linear, scale_intrinsics
-from gens_torch.ops.splat import bilerp_agg_splat
+from gens_torch.ops.splat import bilerp_agg_splat, resolve_splat_impl
 
 # volume.packed_bilerp modes whose aggregation forward reads a bf16 copy of
 # the feature map
@@ -47,14 +50,15 @@ def voxel_grid(dim: int, device=None, dtype=torch.float32) -> torch.Tensor:
 def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
                     c2ws: torch.Tensor, dim: int, scale_idx: int,
                     min_vis_view: int = 1, out_dtype=None,
-                    splat_mm_dtype: Optional[str] = None
+                    splat_mm_dtype: Optional[str] = None,
+                    splat_impl: str = "kernel2"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cascade scale. feat (V, H_i, W_i, C); intrs (V, 3, 3) at the
     finest scale; c2ws (V, 4, 4). ``splat_mm_dtype`` None samples with the
-    plain ``bilerp`` (autograd gives the f32 adjoint); a dtype samples the
-    bf16-rounded map through :class:`BilerpAggSplat`, whose backward is K1
-    with that operand dtype. Returns ``volume (dim, dim, dim, 2C)`` (mean ‖
-    var) and ``mask (dim, dim, dim)`` float."""
+    plain ``bilerp`` (autograd gives the f32 adjoint); a dtype samples
+    through :class:`BilerpAggSplat` under ``splat_impl``, whose backward is
+    K1 with that operand dtype. Returns ``volume (dim, dim, dim, 2C)``
+    (mean ‖ var) and ``mask (dim, dim, dim)`` float."""
     V, H, W, C = feat.shape
     intrs_i = scale_intrinsics(intrs, scale_idx)
     out_dtype = out_dtype or feat.dtype
@@ -78,7 +82,7 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
         if splat_mm_dtype is None:
             vals = bilerp(feat[v], xy)
         else:
-            vals = bilerp_agg_splat(feat[v], xy, splat_mm_dtype)
+            vals = bilerp_agg_splat(feat[v], xy, splat_mm_dtype, splat_impl)
         vm = vals * mask[:, None]
         # in place: the sums' backward keeps nothing, so per view only xy,
         # the mask and vm (for vm²) stay alive for the backward
@@ -96,6 +100,11 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
     return volume, mask_volume
 
 
+def _pallas_scale(packed_bilerp, dim: int) -> bool:
+    """Whether the JAX Pallas kernels run at a scale of this dim."""
+    return packed_bilerp == "pallas" and dim % 16 == 0 and dim >= 16
+
+
 def splat_dtype(packed_bilerp, dim: int, splat_mm_dtype: str
                 ) -> Optional[str]:
     """K1's operand dtype at one cascade scale, or None for the plain
@@ -104,27 +113,38 @@ def splat_dtype(packed_bilerp, dim: int, splat_mm_dtype: str
     falls back to "table_bf16" elsewhere, as the JAX function does."""
     if packed_bilerp not in BF16_FEATURE_MODES:
         return None
-    if packed_bilerp == "pallas" and dim % 16 == 0 and dim >= 16:
+    if _pallas_scale(packed_bilerp, dim):
         return "bfloat16" if splat_mm_dtype == "bfloat16" else "float32"
     return "float32"
+
+
+def splat_impl_at(packed_bilerp, dim: int, splat_impl: str) -> str:
+    """The resolved ``splat_impl`` at one cascade scale: the configured
+    one where the JAX kernels run, "adjoint" (the "table_bf16" path)
+    elsewhere."""
+    impl = resolve_splat_impl(splat_impl)
+    return impl if _pallas_scale(packed_bilerp, dim) else "adjoint"
 
 
 def agg_mean_var(features: Sequence[torch.Tensor], intrs: torch.Tensor,
                  c2ws: torch.Tensor, volume_dims: Sequence[int],
                  min_vis_view: int = 1, out_dtype=None,
-                 packed_bilerp=False, splat_mm_dtype: str = "bfloat16"
+                 packed_bilerp=False, splat_mm_dtype: str = "bfloat16",
+                 splat_impl: str = "auto"
                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Build the full cascade from ``features[i]`` (V, H_i, W_i, C),
     fine-to-coarse. ``packed_bilerp`` in :data:`BF16_FEATURE_MODES` samples
     bf16-rounded feature maps, as the JAX forward reads a bf16 table there,
-    and keeps the backward f32 through K1 (:func:`splat_dtype`). Returns
-    (volumes, mask_volumes)."""
+    and keeps the backward f32 through K1 (:func:`splat_dtype`); under
+    "pallas", ``splat_impl`` chooses the forward and K1's rounding
+    (:func:`splat_impl_at`). Returns (volumes, mask_volumes)."""
     volumes, masks = [], []
     for i, dim in enumerate(volume_dims):
         vol, m = aggregate_scale(
             features[i], intrs, c2ws, dim, i, min_vis_view=min_vis_view,
             out_dtype=out_dtype,
-            splat_mm_dtype=splat_dtype(packed_bilerp, dim, splat_mm_dtype))
+            splat_mm_dtype=splat_dtype(packed_bilerp, dim, splat_mm_dtype),
+            splat_impl=splat_impl_at(packed_bilerp, dim, splat_impl))
         volumes.append(vol)
         masks.append(m)
     return volumes, masks

@@ -3,18 +3,29 @@ PyTorch version -- and :class:`BilerpAggSplat`, the volume aggregation's
 bilinear sampling whose backward is the splat.
 
 Counterpart of gens_tpu/ops/pallas_splat.py (``splat_bilinear``,
-``bilerp_agg_splat``). The splat is the adjoint of ``bilerp``::
+``bilerp_agg_splat``, ``resolve_splat_impl``). The splat is the adjoint of
+``bilerp``::
 
     dimg[y, x, c] = sum_n hat(v_n - y) * hat(u_n - x) * ct[n, c]
 
 with zeros padding and hat(t) = max(0, 1 - |t|); a query whose cotangent
 row is all zero contributes nothing. ``mm_dtype="bfloat16"`` reproduces the
-shipped TPU kernel's operand rounding (each term is bf16(hat_v) *
-bf16(hat_u * ct), summed in f32); ``"float32"`` is the exact adjoint.
+TPU kernel's operand rounding, summed in f32, which depends on its
+``layout``: "fused_u" (the shipped one) rounds each term as bf16(hat_v) *
+bf16(hat_u * ct), "per_channel" (the r03 kernel) as bf16(hat_v * ct) *
+bf16(hat_u). ``"float32"`` is the exact adjoint.
 
 :func:`splat_bilinear` launches the kernel for CUDA tensors and takes
 :func:`splat_plain` only for tensors on the CPU; any other device raises.
 ``splat_bilinear.launches`` counts kernel launches.
+
+``volume.splat_impl`` chooses the aggregation's sampling at the scales the
+JAX Pallas kernels run (see :func:`resolve_splat_impl`): "kernel2" (and
+"auto") a bf16 gather forward and K1 in the fused_u rounding; "kernel" the
+same forward and K1 in the per_channel rounding; "kernel2f" K2
+(``ops/window_fwd.py``) forward and K1 in the fused_u rounding; "adjoint"
+the bf16 gather forward and the exact f32 adjoint, whatever
+``splat_mm_dtype`` says.
 """
 
 from __future__ import annotations
@@ -26,24 +37,43 @@ import torch
 
 from gens_torch.ops.cuda_build import build_library
 from gens_torch.ops.interp import bilerp
+from gens_torch.ops.window_fwd import bilerp_window_fwd
 
 MM_DTYPES = ("float32", "bfloat16")
+LAYOUTS = ("fused_u", "per_channel")
+SPLAT_IMPLS = ("kernel", "kernel2", "kernel2f", "adjoint")
+
+
+def resolve_splat_impl(impl: str) -> str:
+    """A ``volume.splat_impl`` value as one of :data:`SPLAT_IMPLS`. "auto"
+    resolves to "kernel2", as the JAX function does on a TPU (on its CPU
+    it resolves to "adjoint"): the port's aggregation keeps the shipped
+    kernel's rounding on every device."""
+    if impl == "auto":
+        return "kernel2"
+    if impl not in SPLAT_IMPLS:
+        raise ValueError(f"splat_impl must be 'auto' or one of {SPLAT_IMPLS}, "
+                         f"got {impl!r}")
+    return impl
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _check_mm_dtype(mm_dtype: str) -> None:
+def _check_mm_dtype(mm_dtype: str, layout: str = "fused_u") -> None:
     if mm_dtype not in MM_DTYPES:
         raise ValueError(f"mm_dtype must be one of {MM_DTYPES}, got {mm_dtype!r}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
 
 
 def splat_plain(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
-                mm_dtype: str = "float32") -> torch.Tensor:
+                mm_dtype: str = "float32",
+                layout: str = "fused_u") -> torch.Tensor:
     """The kernel's function in torch ops: four corner weights and one
     ``index_add_`` into an (H·W, C) image. Returns (H, W, C) f32."""
-    _check_mm_dtype(mm_dtype)
+    _check_mm_dtype(mm_dtype, layout)
     H, W = hw
     C = ct.shape[1]
     ct = ct.float()
@@ -62,7 +92,9 @@ def splat_plain(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
         # hat weights as the TPU kernel evaluates them: 1 - |u - column|
         wu = torch.clamp(1.0 - (x - (x0f + dx)).abs(), min=0.0)
         wv = torch.clamp(1.0 - (y - (y0f + dy)).abs(), min=0.0)
-        if mm_dtype == "bfloat16":
+        if mm_dtype == "bfloat16" and layout == "per_channel":
+            t = _bf16(wv[:, None] * ct) * _bf16(wu)[:, None]
+        elif mm_dtype == "bfloat16":
             t = _bf16(wv)[:, None] * _bf16(wu[:, None] * ct)
         else:
             t = wv[:, None] * (wu[:, None] * ct)
@@ -86,7 +118,7 @@ def _load() -> ctypes.CDLL:
         lib.splat_bilinear_forward.argtypes = (
             [ctypes.c_void_p] * 3
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p])
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.splat_vector_atomics.restype = ctypes.c_int
         lib.splat_vector_atomics.argtypes = []
         _lib = lib
@@ -99,7 +131,7 @@ def vector_atomics() -> bool:
 
 
 def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
-            mm_dtype: str) -> torch.Tensor:
+            mm_dtype: str, layout: str) -> torch.Tensor:
     if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
         raise ValueError(f"K1 takes contiguous f32 ct (N, C), got "
                          f"{tuple(ct.shape)} {ct.dtype}")
@@ -119,7 +151,7 @@ def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
     stream = torch.cuda.current_stream(xy.device).cuda_stream
     rc = lib.splat_bilinear_forward(
         xy.data_ptr(), ct.data_ptr(), out.data_ptr(), n, H, W, C,
-        int(mm_dtype == "bfloat16"), stream)
+        int(mm_dtype == "bfloat16"), int(layout == "per_channel"), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     splat_bilinear.launches += 1
@@ -127,14 +159,15 @@ def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
 
 
 def splat_bilinear(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
-                   mm_dtype: str = "float32") -> torch.Tensor:
+                   mm_dtype: str = "float32",
+                   layout: str = "fused_u") -> torch.Tensor:
     """Splat ``ct (N, C)`` at pixel coords ``xy (N, 2)`` into an (H, W, C)
     f32 image. CUDA tensors launch K1; CPU tensors take :func:`splat_plain`."""
-    _check_mm_dtype(mm_dtype)
+    _check_mm_dtype(mm_dtype, layout)
     if xy.device.type == "cuda":
-        return _launch(xy, ct, hw, mm_dtype)
+        return _launch(xy, ct, hw, mm_dtype, layout)
     if xy.device.type == "cpu":
-        return splat_plain(xy, ct, hw, mm_dtype)
+        return splat_plain(xy, ct, hw, mm_dtype, layout)
     raise ValueError(f"K1 has no path for device {xy.device}")
 
 
@@ -142,21 +175,34 @@ splat_bilinear.launches = 0
 
 
 class BilerpAggSplat(torch.autograd.Function):
-    """``bilerp`` of the bf16-rounded ``image (H, W, C)`` at ``xy (N, 2)``
-    for the volume aggregation, whose backward splats the f32 cotangent
-    into the image through :func:`splat_bilinear` (the counterpart of
-    ``bilerp_agg_splat``). ``xy`` gets no gradient; only it is saved.
+    """The volume aggregation's bilinear sampling of ``image (H, W, C)`` at
+    ``xy (N, 2)``, whose backward splats the f32 cotangent into the image
+    through :func:`splat_bilinear` (the counterpart of ``bilerp_agg_splat``,
+    ``impl`` a resolved ``splat_impl``). The forward is ``bilerp`` of the
+    bf16-rounded image, or, under "kernel2f", :func:`bilerp_window_fwd`
+    with ``mm_dtype``'s rounding. The backward takes ``mm_dtype`` in the
+    per_channel rounding under "kernel", the exact f32 adjoint under
+    "adjoint", and the fused_u rounding otherwise. ``xy`` gets no gradient;
+    only it is saved.
 
-    ``on_backward``, when set, is called as ``fn(xy, ct, hw, mm_dtype)``
-    with the splat's inputs before each backward (a measurement hook)."""
+    ``on_forward`` / ``on_backward``, when set, are called as
+    ``fn(image, xy, mm_dtype, impl)`` with the forward's inputs and
+    ``fn(xy, ct, hw, mm_dtype)`` with the splat's inputs (measurement
+    hooks)."""
 
+    on_forward: Optional[Callable] = None
     on_backward: Optional[Callable] = None
 
     @staticmethod
-    def forward(ctx, image, xy, mm_dtype):
+    def forward(ctx, image, xy, mm_dtype, impl="kernel2"):
         ctx.save_for_backward(xy)
         ctx.hw = (image.shape[0], image.shape[1])
-        ctx.mm_dtype = mm_dtype
+        ctx.mm_dtype = "float32" if impl == "adjoint" else mm_dtype
+        ctx.layout = "per_channel" if impl == "kernel" else "fused_u"
+        if BilerpAggSplat.on_forward is not None:
+            BilerpAggSplat.on_forward(image, xy, mm_dtype, impl)
+        if impl == "kernel2f":
+            return bilerp_window_fwd(image, xy.contiguous(), mm_dtype)
         return bilerp(_bf16(image), xy)
 
     @staticmethod
@@ -165,10 +211,11 @@ class BilerpAggSplat(torch.autograd.Function):
         xy, ct = xy.contiguous(), ct.float().contiguous()
         if BilerpAggSplat.on_backward is not None:
             BilerpAggSplat.on_backward(xy, ct, ctx.hw, ctx.mm_dtype)
-        dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype)
-        return dimg, None, None
+        dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype, ctx.layout)
+        return dimg, None, None, None
 
 
 def bilerp_agg_splat(image: torch.Tensor, xy: torch.Tensor,
-                     mm_dtype: str = "float32") -> torch.Tensor:
-    return BilerpAggSplat.apply(image, xy, mm_dtype)
+                     mm_dtype: str = "float32",
+                     impl: str = "kernel2") -> torch.Tensor:
+    return BilerpAggSplat.apply(image, xy, mm_dtype, resolve_splat_impl(impl))

@@ -1,5 +1,6 @@
-"""Training and validation orchestrator (counterpart of ``Runner.train``,
-``Runner.validate`` and ``validate_all`` in gens_tpu/runner.py).
+"""Training, validation and finetune orchestrator (counterpart of
+``Runner.train``, ``Runner.validate``, ``validate_all``, ``Runner.finetune``
+and ``_finetune_validate`` in gens_tpu/runner.py).
 
 Training: the epoch loop over the train dataset in a seeded random order,
 the matching-feature resync every ``match_sync_every`` epochs, the cosine
@@ -10,7 +11,16 @@ thread, preemption guard and sharded loop are later slices.
 
 Validation, per scene: build the scene, extract the mesh through K3, render
 the val ray grid in fixed-size chunks, save images, and compute PSNR and
-depth errors. Finetune is a later slice.
+depth errors.
+
+Finetune, per scene (the experiment directory is
+``<base_exp_dir>/<scene>/view<ref_view>``): build the volumes once from all
+views (or resume them from a finetune checkpoint), then take ``epochs``
+steps, each on a view drawn from a seeded permutation, with the loss logged
+every ``log_freq`` steps, a checkpoint every ``save_freq`` steps and
+validation (K3 mesh and chunked render of view 0) every ``val_freq`` steps
+and at the end. The runner's ``RandomState(seed)`` draws the permutations,
+the dataset's own the rays, as in the JAX loop.
 
 The runner works on one explicit device. It sets float32 matmuls and
 convolutions to full precision (no TF32), as the JAX reference computes
@@ -23,25 +33,29 @@ import os
 import struct
 import time
 import zlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gens_torch.config import Config
-from gens_torch.convert import load_params
+from gens_torch.convert import load_checkpoint, load_params
 from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.renderer import Scene
-from gens_torch.train.checkpoint import save_checkpoint
+from gens_torch.train.checkpoint import (load_finetune_checkpoint,
+                                         save_checkpoint,
+                                         save_finetune_checkpoint)
 from gens_torch.train.schedule import cos_anneal_ratio
-from gens_torch.train.step import TrainStep, sync_match_features
+from gens_torch.train.step import (FinetuneStep, TrainStep,
+                                   sync_match_features)
 
 
 def get_dataset(cfg, mode: str = "val"):
-    """The dataset named by a DatasetConfig in ``mode`` "train" or "val"
-    (synthetic only so far)."""
+    """The dataset named by a DatasetConfig in ``mode`` "train", "val" or
+    "finetune" (synthetic only so far; as in the JAX runner, the synthetic
+    scene has ``num_src_view + 1`` views in every mode)."""
     name = cfg.dataset_name.lower().replace("dataset", "")
     if name != "synthetic":
         raise NotImplementedError(
@@ -97,19 +111,25 @@ class Runner:
         self.rng = np.random.RandomState(cfg.train.seed)
         self.generator = torch.Generator().manual_seed(cfg.train.seed)
         self.exp_dir = cfg.base_exp_dir
+        if cfg.mode == "finetune":
+            fd = cfg.finetune_dataset
+            self.exp_dir = os.path.join(self.exp_dir, fd.scene[0],
+                                        f"view{fd.ref_view[0]}")
         os.makedirs(self.exp_dir, exist_ok=True)
         # seconds and rates of the last validate() call, per scene
         self.stats = []
-        # per training step: epoch, step, seconds and metrics
+        # per training / finetune step: step, seconds and metrics
         self.train_stats = []
+        self.finetune_stats = []
 
     def run(self, resume: Optional[str] = None):
         if self.cfg.mode == "val":
             return self.validate_all(resume)
         if self.cfg.mode == "train":
             return self.train(resume)
-        raise NotImplementedError(
-            f"mode {self.cfg.mode!r} is not ported yet; see ROADMAP.md")
+        if self.cfg.mode == "finetune":
+            return self.finetune(resume)
+        raise ValueError(f"unknown mode {self.cfg.mode!r}")
 
     def train(self, resume: Optional[str] = None) -> Dict[str, float]:
         """The generalizable training loop; ``resume`` continues from a
@@ -180,6 +200,90 @@ class Runner:
         payload = load_params(self.model, resume)
         return self.validate(int(payload.get("epoch", 0)))
 
+    def finetune(self, resume: Optional[str]) -> Dict[str, float]:
+        """Per-scene finetune from a generalizable checkpoint (the volumes
+        are built from all views) or a finetune one (the volumes, masks,
+        features and MLPs are restored; the step count and the optimizer
+        state are not, as in JAX). Returns the mean metrics of the run;
+        ``finetune_stats`` holds the per-step ones, ``init_volumes_s`` the
+        volume build's seconds and ``ft_step`` the :class:`FinetuneStep`."""
+        if not resume:
+            raise ValueError("finetune needs a checkpoint (--resume)")
+        cfg, tc = self.cfg, self.cfg.train
+        dataset = get_dataset(cfg.finetune_dataset, "finetune")
+        payload = load_checkpoint(resume)
+        self.init_volumes_s = None
+        if "volumes" in payload["params"]:
+            _, arrays = load_finetune_checkpoint(self.model, payload)
+            volumes, masks, features = (
+                [a.to(self.device) for a in arrays[k]]
+                for k in ("volumes", "mask_volumes", "features"))
+        else:
+            load_params(self.model, payload)
+            raw = self._tensors(dataset.get_all_images())
+            self._sync()
+            t0 = time.perf_counter()
+            volumes, masks, features = self.model.init_volumes(
+                raw["imgs"], raw["intrs"], raw["c2ws"])
+            self._sync()
+            self.init_volumes_s = time.perf_counter() - t0
+        step_fn = FinetuneStep(self.model, cfg, volumes, masks, features)
+        self.ft_step = step_fn
+        ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
+        sums: Dict[str, float] = {}
+        perm = self.rng.permutation(dataset.num_views)
+        for step in range(tc.epochs):
+            vid = int(perm[step % len(perm)])
+            raw = dataset.get_random_rays(vid)
+            inputs = self._tensors(raw)
+            inputs["view_ids"] = torch.from_numpy(raw["view_ids"]).to(
+                self.device)
+            self._sync()
+            t0 = time.perf_counter()
+            metrics = step_fn(inputs, cos_anneal_ratio(step, tc.anneal_end),
+                              generator=self.generator)
+            scalars = dict(zip(metrics, torch.stack(
+                list(metrics.values())).tolist()))
+            seconds = time.perf_counter() - t0
+            self.finetune_stats.append({"step": step, "vid": vid,
+                                        "step_s": seconds, **scalars})
+            for k, v in scalars.items():
+                sums[k] = sums.get(k, 0.0) + v
+            if (step + 1) % len(perm) == 0:
+                perm = self.rng.permutation(dataset.num_views)
+            if (step + 1) % max(1, int(tc.log_freq)) == 0:
+                print(f"[finetune] step {step} view {vid}: loss "
+                      f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "
+                      f"({seconds:.3f} s)", flush=True)
+            last = step + 1 >= tc.epochs
+            if (step + 1) % tc.save_freq == 0 or last:
+                save_finetune_checkpoint(
+                    os.path.join(ckpt_dir, f"model_{step:03d}.ckpt"), step,
+                    self.model, step_fn.volumes, step_fn.mask_volumes,
+                    step_fn.features)
+            if (step + 1) % tc.val_freq == 0 or last:
+                self._finetune_validate(step_fn, dataset, step)
+        return {k: v / max(tc.epochs, 1) for k, v in sums.items()}
+
+    @torch.no_grad()
+    def _finetune_validate(self, step_fn: FinetuneStep, dataset, step: int
+                           ) -> None:
+        """K3 mesh of the finetuned volumes and the chunked render of view
+        0's val grid; appends the call's seconds and counts to
+        ``finetune_stats``."""
+        raw = dataset.get_rays_at(0)
+        inputs = self._tensors(raw)
+        view_ids = torch.from_numpy(raw["view_ids"]).to(self.device)
+        feats = [f.index_select(0, view_ids) for f in step_fn.features]
+        scene = Scene(volumes=[v.detach() for v in step_fn.volumes],
+                      mask_volumes=step_fn.mask_volumes, features=feats,
+                      match_features=feats, imgs=inputs["imgs"],
+                      intrs=inputs["intrs"], c2ws=inputs["c2ws"])
+        self.last_scene = scene
+        st, _ = self._mesh_and_render(scene, raw, inputs, f"step{step}",
+                                      f"ft{step}")
+        self.finetune_stats.append({"val_step": step, **st})
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -233,41 +337,10 @@ class Runner:
             st["build_scene_s"] = time.perf_counter() - t0
             self.last_scene = scene
             h, w = int(raw["hw"][0]), int(raw["hw"][1])
-
-            t0 = time.perf_counter()
-            sdf_fn = self.model.renderer.sdf_fn_for_extraction(scene.volumes)
-            grid = eval_sdf_grid(sdf_fn, raw["bound_min"], raw["bound_max"],
-                                 cfg.mesh_resolution, self.device)
-            st["mesh_grid_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            verts, tris = grid_to_mesh(grid, raw["bound_min"],
-                                       raw["bound_max"])
-            st["isosurface_s"] = time.perf_counter() - t0
-            st["n_tris"] = int(len(tris))
-            st["grid_finite"] = bool(np.isfinite(grid).all())
-            self.last_sdf_grid = grid
-            if len(verts):
-                verts = apply_transform(verts, np.asarray(raw["scale_mat"]))
-            mesh_dir = os.path.join(self.exp_dir, "meshes")
-            os.makedirs(mesh_dir, exist_ok=True)
-            write_ply(os.path.join(
-                mesh_dir, f"{raw['scene']}_epoch{epoch}.ply"), verts, tris)
-
-            self._sync()
-            t0 = time.perf_counter()
-            rend = self.render_chunked(scene, inputs)
-            st["render_s"] = time.perf_counter() - t0
-            st["rays"] = int(inputs["rays_o"].shape[0])
-            st["rays_per_s"] = st["rays"] / st["render_s"]
-            st["render_finite"] = bool(all(np.isfinite(v).all()
-                                           for v in rend.values()))
-            self._save_val_images(raw, rend, (h, w), epoch)
-
-            color = rend["color_fine"].reshape(h, w, 3)
-            gt = np.asarray(raw["color"]).reshape(h, w, 3)
-            mse = float(((color - gt) ** 2).mean())
-            scalars = {"psnr": 20.0 * np.log10(1.0 / np.sqrt(mse + 1e-12)),
-                       "color_loss": float(np.abs(color - gt).mean())}
+            mesh_st, rend = self._mesh_and_render(scene, raw, inputs,
+                                                  f"epoch{epoch}", epoch)
+            st.update(mesh_st)
+            scalars = {k: st[k] for k in ("psnr", "color_loss")}
             depth_ref = subsample_to_val_grid(np.asarray(raw["depth_ref"]),
                                               h, w)
             dmask = (depth_ref > 0).astype(np.float32)
@@ -280,6 +353,49 @@ class Runner:
             for k, v in scalars.items():
                 sums[k] = sums.get(k, 0.0) + v
         return {k: v / max(len(dataset), 1) for k, v in sums.items()}
+
+    def _mesh_and_render(self, scene: Scene, raw: Dict, inputs, name: str,
+                         tag) -> Tuple[Dict, Dict[str, np.ndarray]]:
+        """Extract the scene's mesh through K3 (written as
+        ``meshes/<scene>_<name>.ply``), render ``inputs``' rays in chunks and
+        save the images under ``tag``. Returns (seconds, counts, PSNR and
+        colour L1 against ``raw["color"]``; the render). The SDF grid is
+        kept in ``last_sdf_grid``."""
+        st = {}
+        t0 = time.perf_counter()
+        sdf_fn = self.model.renderer.sdf_fn_for_extraction(scene.volumes)
+        grid = eval_sdf_grid(sdf_fn, raw["bound_min"], raw["bound_max"],
+                             self.cfg.mesh_resolution, self.device)
+        st["mesh_grid_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verts, tris = grid_to_mesh(grid, raw["bound_min"], raw["bound_max"])
+        st["isosurface_s"] = time.perf_counter() - t0
+        st["n_tris"] = int(len(tris))
+        st["grid_finite"] = bool(np.isfinite(grid).all())
+        self.last_sdf_grid = grid
+        if len(verts):
+            verts = apply_transform(verts, np.asarray(raw["scale_mat"]))
+        mesh_dir = os.path.join(self.exp_dir, "meshes")
+        os.makedirs(mesh_dir, exist_ok=True)
+        write_ply(os.path.join(mesh_dir, f"{raw['scene']}_{name}.ply"),
+                  verts, tris)
+
+        self._sync()
+        t0 = time.perf_counter()
+        rend = self.render_chunked(scene, inputs)
+        st["render_s"] = time.perf_counter() - t0
+        st["rays"] = int(inputs["rays_o"].shape[0])
+        st["rays_per_s"] = st["rays"] / st["render_s"]
+        st["render_finite"] = bool(all(np.isfinite(v).all()
+                                       for v in rend.values()))
+        h, w = int(raw["hw"][0]), int(raw["hw"][1])
+        self._save_val_images(raw, rend, (h, w), tag)
+        color = rend["color_fine"].reshape(h, w, 3)
+        gt = np.asarray(raw["color"]).reshape(h, w, 3)
+        mse = float(((color - gt) ** 2).mean())
+        st["psnr"] = 20.0 * np.log10(1.0 / np.sqrt(mse + 1e-12))
+        st["color_loss"] = float(np.abs(color - gt).mean())
+        return st, rend
 
     def _save_val_images(self, raw, rend, hw, tag):
         h, w = hw

@@ -1,4 +1,5 @@
-"""The generalizable training step (counterpart of gens_tpu/train/step.py):
+"""The generalizable training step and the finetune step (counterpart of
+gens_tpu/train/step.py and the finetune step of gens_tpu/runner.py):
 forward, losses, and an Adam update with per-group learning rates under a
 warmup-cosine schedule.
 
@@ -10,16 +11,24 @@ in no group (optax ``set_to_zero``). The schedule is a ``LambdaLR`` on
 update, so the first update uses the factor at step 0 as optax's count does.
 torch's Adam and optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the
 square root) compute the same update.
+
+Finetune, as the JAX ``make_finetune_optimizer``: ``mlp`` (``sdf``,
+``blending`` and ``variance``, all at ``lr_mlp``; ``lr_variance_mult``
+plays no part) and ``vol0`` … ``vol{n-1}``, one per cascade volume at
+``lr_vol[i]``, under ``warmup_cosine_factor(step, epochs, warmup, alpha)``
+counted in raw steps.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.nn as nn
 
 from gens_torch.config import Config, TrainConfig
+from gens_torch.convert import FINETUNE_MODULES
 from gens_torch.losses import compute_losses
 from gens_torch.models.gens import GenSModel
 from gens_torch.train.schedule import warmup_cosine_factor
@@ -28,6 +37,7 @@ from gens_torch.train.schedule import warmup_cosine_factor
 GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
           "feature": "feat", "reg": "feat"}
 PHASES = ("build_scene", "render", "backward", "optimizer")
+FINETUNE_PHASES = ("render", "backward", "optimizer")
 
 
 def param_groups(model: GenSModel, tcfg: TrainConfig) -> List[Dict]:
@@ -52,6 +62,27 @@ def make_optimizer(model: GenSModel, tcfg: TrainConfig, steps_per_epoch: int,
     def factor(step: int) -> float:
         return warmup_cosine_factor((step + start_step) / steps_per_epoch,
                                     tcfg.epochs, tcfg.warmup, tcfg.alpha)
+
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+def make_finetune_optimizer(model: GenSModel, volumes: Sequence[torch.Tensor],
+                            tcfg: TrainConfig):
+    """(Adam, LambdaLR) over the ``mlp`` group (sdf, blending, variance)
+    and one group per cascade volume."""
+    if len(volumes) != len(tcfg.lr_vol):
+        raise ValueError(f"{len(volumes)} volumes but {len(tcfg.lr_vol)} "
+                         "train.lr_vol entries")
+    mlp = [p for top in FINETUNE_MODULES
+           for p in getattr(model, top).parameters()]
+    groups = [{"name": "mlp", "params": mlp, "lr": tcfg.lr_mlp}]
+    groups += [{"name": f"vol{i}", "params": [v], "lr": lr}
+               for i, (v, lr) in enumerate(zip(volumes, tcfg.lr_vol))]
+    opt = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+
+    def factor(step: int) -> float:
+        return warmup_cosine_factor(step, tcfg.epochs, tcfg.warmup,
+                                    tcfg.alpha)
 
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
 
@@ -139,4 +170,57 @@ class TrainStep:
         metrics["s_val"] = outputs["s_val"].detach().mean()
         if marks:
             metrics["phase_ms"] = dict(zip(PHASES, marks.ms()))
+        return metrics
+
+
+class FinetuneStep:
+    """The per-scene finetune step. The five cascade ``volumes`` become
+    ``nn.Parameter``s (``self.volumes``); ``mask_volumes`` and
+    ``features`` stay frozen. ``step(inputs, cos_anneal_ratio, ...)``
+    (``inputs`` with ``view_ids``) runs one update of the volumes and of
+    the model's sdf, blending and variance modules and returns the losses
+    and ``psnr`` as 0-d tensors; ``.grad`` then holds this step's
+    gradients. With ``timing=True`` the metrics also hold ``phase_ms``:
+    milliseconds of render (with the losses), backward and the optimizer
+    update."""
+
+    def __init__(self, model: GenSModel, cfg: Config,
+                 volumes: Sequence[torch.Tensor],
+                 mask_volumes: Sequence[torch.Tensor],
+                 features: Sequence[torch.Tensor]):
+        self.model = model
+        self.cfg = cfg
+        self.volumes = [nn.Parameter(v.detach().clone()) for v in volumes]
+        self.mask_volumes = [m.detach() for m in mask_volumes]
+        self.features = [f.detach() for f in features]
+        self.optimizer, self.scheduler = make_finetune_optimizer(
+            model, self.volumes, cfg.train)
+
+    def __call__(self, inputs: Dict[str, torch.Tensor],
+                 cos_anneal_ratio: float,
+                 generator: Optional[torch.Generator] = None,
+                 perturb_noise: Optional[torch.Tensor] = None,
+                 sparse_pts: Optional[torch.Tensor] = None,
+                 timing: bool = False) -> Dict:
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        marks = _Marks(inputs["imgs"].device) if timing else None
+        outputs = self.model.forward_finetune(
+            self.volumes, self.mask_volumes, self.features, inputs,
+            cos_anneal_ratio, generator, perturb_noise, sparse_pts)
+        losses = compute_losses(outputs, inputs, self.cfg.train.loss)
+        if marks:
+            marks.mark()
+        losses["loss"].backward()
+        if marks:
+            marks.mark()
+        self.optimizer.step()
+        self.scheduler.step()
+        if marks:
+            marks.mark()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["psnr"] = psnr(outputs["color_fine"].detach(),
+                               inputs["color"])
+        if marks:
+            metrics["phase_ms"] = dict(zip(FINETUNE_PHASES, marks.ms()))
         return metrics

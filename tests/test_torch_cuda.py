@@ -1,6 +1,7 @@
-"""K3 and K1 on the card: each CUDA kernel against its plain PyTorch
-version (K3 on the trained weights, K1 on random queries), including ragged
-sizes and, for K1, all-dead queries, and the wrappers' input checks.
+"""K3, K1 and K2 on the card: each CUDA kernel against its plain PyTorch
+version (K3 on the trained weights, K1 and K2 on random queries), including
+ragged sizes, K1's all-dead queries and both of its bf16 roundings, K2's
+out-of-image and non-finite queries, and the wrappers' input checks.
 Imports neither jax nor gens_tpu, so it runs on a machine with only PyTorch
 and the CUDA toolkit:
 
@@ -18,6 +19,7 @@ from gens_torch.config import SDFNetConfig
 from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.ops import fused_mlp as fm
 from gens_torch.ops import splat as k1
+from gens_torch.ops import window_fwd as k2
 
 ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts", "quality_gen_r05_sharpen.pkl")
@@ -88,17 +90,20 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16",
+                                      "bfloat16-per_channel"])
 @pytest.mark.parametrize("n,hw,c", [(1, (30, 40), 4), (255, (30, 40), 4),
                                     (100003, (120, 160), 4),
                                     (4097, (60, 80), 3)])
 def test_splat_matches_plain(card, mm_dtype, n, hw, c):
+    mm_dtype, _, layout = mm_dtype.partition("-")
+    layout = layout or "fused_u"
     xy, ct = _queries(n, hw, c, n)
     before = k1.splat_bilinear.launches
-    got = k1.splat_bilinear(xy, ct, hw, mm_dtype)
+    got = k1.splat_bilinear(xy, ct, hw, mm_dtype, layout)
     torch.cuda.synchronize()
     assert k1.splat_bilinear.launches == before + 1
-    ref = k1.splat_plain(xy, ct, hw, mm_dtype)
+    ref = k1.splat_plain(xy, ct, hw, mm_dtype, layout)
     assert got.shape == (hw[0], hw[1], c)
     assert float((got - ref).abs().max()) <= K1_TOL * float(ref.abs().max())
 
@@ -137,3 +142,63 @@ def test_splat_wrapper_checks_inputs(card):
         k1.splat_bilinear(xy, ct.t().contiguous().t(), (30, 40))
     with pytest.raises(ValueError):
         k1.splat_bilinear(xy, ct, (30, 40), "float16")
+
+
+# K2 against its plain version, as a fraction of max |plain|: the same
+# operand rounding, products and sums in the same order, but nvcc may
+# contract a multiply-add into an FMA
+K2_TOL = 1e-5
+
+
+def _image(hw, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((hw[0], hw[1], c), generator=g).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,hw,c", [(1, (30, 40), 4), (255, (30, 40), 4),
+                                    (100003, (120, 160), 4),
+                                    (100003, (60, 80), 3)])
+def test_window_fwd_matches_plain(card, mm_dtype, n, hw, c):
+    xy, _ = _queries(n, hw, 1, n)
+    img = _image(hw, c, n + 1)
+    before = k2.bilerp_window_fwd.launches
+    got = k2.bilerp_window_fwd(img, xy, mm_dtype)
+    torch.cuda.synchronize()
+    assert k2.bilerp_window_fwd.launches == before + 1
+    ref = k2.window_fwd_plain(img, xy, mm_dtype)
+    assert got.shape == (n, c) and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= K2_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 3])
+def test_window_fwd_outside_and_nonfinite_give_zero(card, c):
+    inf, nan = float("inf"), float("nan")
+    H, W = 30, 40
+    xy = torch.tensor([[-1.0, 3.0], [float(W), 3.0], [3.0, -1.0],
+                       [3.0, float(H)], [1e9, -1e9], [inf, 3.0],
+                       [-inf, 3.0], [3.0, inf], [nan, 3.0], [3.0, nan],
+                       [nan, nan], [-inf, inf]] * 100).cuda()
+    img = _image((H, W), c, 0)
+    for mm in ("float32", "bfloat16"):
+        got = k2.bilerp_window_fwd(img, xy, mm)
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(got) == 0, mm
+
+
+@pytest.mark.cuda
+def test_window_fwd_wrapper_checks_inputs(card):
+    xy, _ = _queries(64, (30, 40), 1, 0)
+    img = _image((30, 40), 4, 0)
+    with pytest.raises(ValueError):
+        k2.bilerp_window_fwd(img, xy.double())
+    with pytest.raises(ValueError):
+        k2.bilerp_window_fwd(img, xy.t().contiguous().t())
+    with pytest.raises(ValueError):
+        k2.bilerp_window_fwd(img[0], xy)
+    with pytest.raises(ValueError):
+        k2.bilerp_window_fwd(img, xy, "float16")
+    with pytest.raises(ValueError):
+        k2.bilerp_window_fwd(img.cpu(), xy)

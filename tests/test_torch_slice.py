@@ -169,8 +169,8 @@ def test_main_without_cuda_raises(monkeypatch):
         main_mod.main(["--mode", "val", "--resume", "unused"])
     with pytest.raises(RuntimeError, match="--device cpu"):
         main_mod.main(["--mode", "train"])
-    with pytest.raises(NotImplementedError):
-        main_mod.main(["--mode", "finetune", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main_mod.main(["--mode", "finetune", "--resume", "unused"])
 
 
 def test_port_imports_neither_jax_nor_gens_tpu():
