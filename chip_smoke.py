@@ -5,9 +5,11 @@ on one NVIDIA GPU.
     python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K1 (gens_torch/csrc/splat.cu)
-   and K2 (gens_torch/csrc/window_fwd.cu), one nvcc each, started
-   together, and the native isosurface, from the sources in the checkout.
+2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K1 (gens_torch/csrc/splat.cu),
+   K2 (gens_torch/csrc/window_fwd.cu) and P1-P3
+   (gens_torch/csrc/gather_probe.cu), one nvcc each, started together,
+   and the native isosurface and raycaster, from the sources in the
+   checkout.
 3. The val path, through its entry point ``gens_torch.main --mode val``, at
    the full width of confs/dtu.yaml's model (256³…16³ cascade, 64+64
    samples, 4 up-sample rounds, 128-wide SDF MLP with 129 outputs) on the
@@ -47,7 +49,20 @@ on one NVIDIA GPU.
    version and ``F.grid_sample``; the raw volumes under "kernel2f" against
    the gather forward ("auto") on the run's features; one finetune step of
    a small seeded model on the GPU against the CPU.
-8. Prints the card line, the kernels JSON line and, last, the ok line.
+8. The quality evaluation, through ``gens_torch.eval.quality`` on the
+   trained artifact, held-out sphere only (480x640, 128³ cascade, 64+64
+   samples, bf16, 76,800 rays, a 192³ mesh, cleaning and scoring). Counters
+   zeroed just before and read just after; K3 must have launched 27 times.
+   Held-out accuracy within 15% and PSNR within 0.5 dB of the JAX record,
+   QUALITY_r05_sharpen_repro.json.
+9. The gather probes, through ``gens_torch.probes.gather --iters 2`` (every
+   row of both TPU probe scripts; counters zeroed just before and read just
+   after, P1-P3 launched in it), printed on one ``gather_probe`` line; then
+   P1, P2 and P3 against their plain versions, bit for bit, on every probe
+   shape at 2^20 indices, timed beside their bound, the plain version and
+   the library calls (``index_select``; for P3 also cuBLAS ``matmul`` of
+   the same one-hot).
+10. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -64,6 +79,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5  # f32 both sides, other sum order
 SLAB_TOL = 1e-4          # the slab adds the cascade lookup, shared by both
@@ -85,6 +101,14 @@ K2_TOL = 1e-5
 # by at most 2^-9 A, the variance E[x²] - E[x]² by at most 4 * 2^-9 A²
 # (1% added for the f32 sums)
 AGG_EPS = 2.0 ** -9
+# the quality phase against the JAX record of the same checkpoint: bf16 on
+# another chip, the artifact's fp16 storage of the params and another order
+# of atomics (the JAX f32 and bf16 evals of one checkpoint agreed within
+# 0.3%)
+QUALITY_RECORD = "QUALITY_r05_sharpen_repro.json"
+QUALITY_ACC_RTOL, QUALITY_PSNR_ATOL = 0.15, 0.5
+# the probe shapes the comparison runs at: P1 (E2), P2 and P3 (A)
+GATHER_N = 1 << 20
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -107,7 +131,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
 
     from gens_torch.main import main as gens_main
-    from gens_torch.mesh import isosurface
+    from gens_torch.mesh import clean, isosurface
     from gens_torch.mesh.extract import eval_sdf_grid
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
@@ -122,8 +146,10 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_libraries(["sdf_mlp.cu", "splat.cu", "window_fwd.cu"])
+    built = build_libraries(["sdf_mlp.cu", "splat.cu", "window_fwd.cu",
+                             "gather_probe.cu"])
     isosurface.build_library()
+    clean.build_library()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
         f"{k} {v[1]} s" for k, v in built.items()) + ")", flush=True)
     for _, _, ptxas in built.values():
@@ -235,6 +261,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_finetune(dev)
 
+    # -- the quality evaluation, through its entry point --------------------
+    quality_path()
+    torch.cuda.empty_cache()
+
+    # -- the gather probes, through their entry point ----------------------
+    gather_launches = gather_probe_path()
+    gather_rows = gather_phase(gather_launches)
+
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
         "source": "gens_torch/csrc/sdf_mlp.cu",
@@ -243,7 +277,7 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k1_row, k2_row]
+    }, k1_row, k2_row] + gather_rows
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -254,13 +288,24 @@ def main() -> int:
 
 def zero_counts() -> None:
     """Set every kernel's launch count to 0."""
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def counters() -> dict:
+    """Every kernel wrapper, by the kernel's name."""
     from gens_torch.ops import fused_mlp as fm
+    from gens_torch.ops import gather as gk
     from gens_torch.ops import splat as k1
     from gens_torch.ops import window_fwd as k2
 
-    fm.sdf_mlp_fused.launches = 0
-    k1.splat_bilinear.launches = 0
-    k2.bilerp_window_fwd.launches = 0
+    return {"K3": fm.sdf_mlp_fused, "K1": k1.splat_bilinear,
+            "K2": k2.bilerp_window_fwd, "P1": gk.row_gather_take,
+            "P2": gk.row_gather_take_along, "P3": gk.onehot_gather}
+
+
+def launch_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
 
 
 def render_breakdown(runner) -> dict:
@@ -846,6 +891,155 @@ def check_small_finetune(dev) -> None:
         flush=True)
     assert rel <= TRAIN_LOSS_RTOL, rel
     assert all(e <= TRAIN_GRAD_TOL for e in errs.values()), errs
+
+
+def quality_path() -> None:
+    """``gens_torch.eval.quality`` on the trained artifact, held-out sphere
+    only, at the protocol's size; K3 launches 27 times (a 192³ grid in 64³
+    blocks) and nothing else; accuracy and PSNR against the JAX record."""
+    from gens_torch.eval import quality
+
+    artifact = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
+    with open(os.path.join(REPO, QUALITY_RECORD)) as f:
+        record = json.load(f)
+    out = os.path.join(REPO, "build", "chip_smoke_quality.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = quality.main(["--ckpt", artifact, "--scenes", "heldout",
+                        "--out", out])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "K3": (192 // 64) ** 3}, \
+        counts
+    cfg = res["config"]
+    assert cfg["hw"] == [480, 640] and cfg["mesh_res"] == 192
+    assert cfg["volume_dims"] == record["config"]["volume_dims"]
+    keys = ("acc_mean", "acc_p50", "acc_p90", "comp_mean", "overall", "psnr",
+            "verts_raw", "verts_clean", "verts_bbox", "verts_scored")
+    print("quality path: " + json.dumps({
+        "wall_s": wall, "k3_launches": counts["K3"],
+        "params_stored_dtype": res["params_stored_dtype"],
+        "port": {k: res[f"heldout_{k}"] for k in keys},
+        "jax_record": {k: record[f"heldout_{k}"] for k in keys},
+        "seconds": {k: res[f"heldout_{k}_s"] for k in (
+            "build_scene", "render", "mesh_grid", "isosurface",
+            "clean_and_score")},
+        "rays_per_s": res["heldout_rays_per_s"]}), flush=True)
+    acc, ref_acc = res["heldout_acc_mean"], record["heldout_acc_mean"]
+    psnr, ref_psnr = res["heldout_psnr"], record["heldout_psnr"]
+    if abs(acc - ref_acc) > QUALITY_ACC_RTOL * ref_acc:
+        raise AssertionError(f"held-out acc {acc} is not within "
+                             f"{QUALITY_ACC_RTOL:.0%} of {ref_acc}")
+    if abs(psnr - ref_psnr) > QUALITY_PSNR_ATOL:
+        raise AssertionError(f"held-out PSNR {psnr} is not within "
+                             f"{QUALITY_PSNR_ATOL} dB of {ref_psnr}")
+
+
+def gather_probe_path() -> dict:
+    """``gens_torch.probes.gather --iters 2``: every row of both TPU probe
+    scripts; returns P1-P3's launches in it (each kernel row: one check
+    against index_select, then two passes of 2; P1 runs the 5 rows of E2
+    and beside the library on the 11 of E1 and the 5 of C)."""
+    from gens_torch.probes import gather as probe
+
+    out = os.path.join(REPO, "build", "chip_smoke_gather_probe.json")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = probe.main(["--iters", "2", "--out", out])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    per_row = 1 + 2 * 2
+    assert counts == {"K3": 0, "K1": 0, "K2": 0, "P1": 21 * per_row,
+                      "P2": 3 * per_row, "P3": 2 * per_row}, counts
+    print("gather_probe " + json.dumps({"wall_s": wall, **res}), flush=True)
+    return counts
+
+
+def gather_phase(launches) -> list:
+    """P1, P2 and P3 against their plain versions, bit for bit, on every
+    probe shape at 2^20 indices; ms beside the bound, the plain version
+    and the library calls. Returns the kernels-line rows (the first shape
+    of each kernel; every shape is printed)."""
+    from gens_torch.ops import gather as gk
+    from gens_torch.probes import gather as probe
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    plans = {
+        "P1": (gk.row_gather_take, [s for s in probe.E2]),
+        "P2": (gk.row_gather_take_along,
+               [s[1:] for s in probe.A if s[0] == "tala"]),
+        "P3": (gk.onehot_gather, [s[1:] for s in probe.A if s[0] == "onehot"]),
+    }
+    source = {"P1": ("row_gather_take", "scripts/gather_probe.py:94"),
+              "P2": ("row_gather_take_along", "scripts/gather_probe2.py:54"),
+              "P3": ("onehot_gather", "scripts/gather_probe2.py:59")}
+    rows = []
+    for key, (wrapper, shapes) in plans.items():
+        onehot = key == "P3"
+        plain = gk.onehot_gather_plain if onehot else gk.row_gather_plain
+        per_shape = []
+        for n_rows, width, dt in shapes:
+            table = torch.randn((n_rows, width), generator=g, device="cuda",
+                                dtype=probe.DTYPES[dt])
+            idx = torch.randint(0, n_rows, (GATHER_N,), generator=g,
+                                device="cuda", dtype=torch.int32)
+            got = wrapper(table, idx)
+            ref = plain(table, idx)
+            torch.cuda.synchronize()
+            ibits = torch.int16 if table.dtype == torch.bfloat16 else \
+                torch.int32
+            if not torch.equal(got.view(ibits), ref.view(ibits)):
+                raise AssertionError(f"{key} on {(n_rows, width, dt)} is not "
+                                     "bit for bit its plain version")
+            err = float((got.float() - ref.float()).abs().max())
+            del got, ref
+            elem = table.element_size()
+            touched = int(torch.unique(idx).numel())
+            n_bytes = 4 * GATHER_N + GATHER_N * width * elem \
+                + touched * width * elem
+            flops = 2.0 * GATHER_N * n_rows * width if onehot else 0.0
+            t_bytes = n_bytes / PEAK_BYTES * 1e3
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            sel_table = table.to(torch.bfloat16).to(table.dtype) \
+                if onehot else table
+            entry = {
+                "table_rows": n_rows, "width": width, "dtype": dt,
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: wrapper(table, idx), 20),
+                "plain_ms": cuda_ms(lambda: plain(table, idx), 3),
+                "index_select_ms": cuda_ms(
+                    lambda: torch.index_select(sel_table, 0, idx), 20),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "bytes": n_bytes, "flop": flops}
+            if onehot:
+                # cuBLAS on the same function: the pre-built bf16 one-hot
+                # times the bf16 table
+                cols = torch.arange(n_rows, device="cuda")
+                oh = (idx[:, None].long() == cols[None]).to(torch.bfloat16)
+                tb = table.to(torch.bfloat16)
+                lib = torch.matmul(oh, tb)
+                if not torch.equal(lib.float(), sel_table.float()[idx.long()]):
+                    raise AssertionError("cuBLAS one-hot product differs")
+                del lib
+                entry["matmul_ms"] = cuda_ms(lambda: torch.matmul(oh, tb), 5)
+                del oh, tb
+            entry["library_ms"] = entry.get("matmul_ms",
+                                            entry["index_select_ms"])
+            per_shape.append(entry)
+            del table, idx, sel_table
+            torch.cuda.empty_cache()
+        print(f"{key} {source[key][0]}: " + json.dumps(per_shape), flush=True)
+        first = per_shape[0]
+        rows.append({
+            "name": source[key][0], "route": "cuda",
+            "source": "gens_torch/csrc/gather_probe.cu",
+            "replaces": source[key][1], "launches": launches[key],
+            "max_abs_err": max(e["max_abs_err"] for e in per_shape),
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}})
+    return rows
 
 
 if __name__ == "__main__":

@@ -9,9 +9,14 @@ maps, (in, out) dense kernels at the parameter bridge (``convert.py``).
 Entry points run on the card unless the caller asks for the CPU; a kernel
 wrapper takes its plain PyTorch version only for tensors on the CPU.
 
-This slice covers the serving path: ``GenSModel.build_scene`` ->
-``Renderer.render(train=False)`` -> mesh extraction through the fused
-SDF-MLP kernel (``ops/fused_mlp.py``, ``csrc/sdf_mlp.cu``).
+Entry points: ``gens_torch.main`` (``--mode val|train|finetune``),
+``gens_torch.eval.quality`` (the synthetic quality protocol on a
+checkpoint), ``gens_torch.eval.chamfer`` (DTU Chamfer) and
+``gens_torch.probes.gather`` (gather and scatter rates on the card). The
+kernels are in ``csrc/`` with their wrappers and plain versions in
+``ops/``: the fused SDF MLP (``fused_mlp.py``), the splat (``splat.py``),
+the windowed bilerp forward (``window_fwd.py``) and the gather probes
+(``gather.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Synthetic analytic-SDF scene: Lambertian unit-ish sphere rendered from a
 camera ring (own copy of gens_tpu/data/synthetic.py, with its train, val
-and finetune protocols; the quality-metric helpers come with a later
-slice).
+and finetune protocols and the quality metrics' exact shape distances and
+surface samples).
 
 The reference has no test suite; SURVEY.md §4 recommends a tiny synthetic
 scene (analytic SDF + ray-traced views) as the end-to-end fixture. This
@@ -31,6 +31,10 @@ def look_at(eye: np.ndarray, target: np.ndarray, up=(0.0, 0.0, 1.0)) -> np.ndarr
     c2w[:3, 2] = fwd
     c2w[:3, 3] = eye
     return c2w
+
+
+def sphere_sdf(pts: np.ndarray, radius: float = 0.5) -> np.ndarray:
+    return np.linalg.norm(pts, axis=-1) - radius
 
 
 def shape_spheres(shape=None, radius: float = 0.5):
@@ -74,6 +78,36 @@ def trace_spheres(origins: np.ndarray, dirs: np.ndarray, centers: np.ndarray,
     for k, (c, r) in enumerate(zip(centers, radii)):
         normals = np.where((idx_best == k)[..., None], (pts - c) / r, normals)
     return t, hit, normals.astype(np.float32)
+
+
+def shape_distance(pts: np.ndarray, centers: np.ndarray,
+                   radii: np.ndarray) -> np.ndarray:
+    """|signed distance to the union surface| at ``pts`` (exact outside the
+    union and inside a single lobe; the seam interior is never scored — mesh
+    vertices live on the surface)."""
+    d = np.min(np.stack([
+        np.linalg.norm(pts - c, axis=-1) - r
+        for c, r in zip(centers, radii)], axis=-1), axis=-1)
+    return np.abs(d)
+
+
+def shape_surface_samples(centers: np.ndarray, radii: np.ndarray, n: int,
+                          rng=None) -> np.ndarray:
+    """~n uniform samples on the union's surface: per-sphere uniform points,
+    rejecting those strictly inside another sphere."""
+    rng = rng or np.random.RandomState(0)
+    per = max(n // len(radii), 1)
+    out = []
+    for k, (c, r) in enumerate(zip(centers, radii)):
+        dirs = rng.randn(per, 3)
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        pts = c + dirs * r
+        keep = np.ones(per, bool)
+        for j, (c2, r2) in enumerate(zip(centers, radii)):
+            if j != k:
+                keep &= np.linalg.norm(pts - c2, axis=-1) >= r2 - 1e-6
+        out.append(pts[keep])
+    return np.concatenate(out, axis=0).astype(np.float32)
 
 
 def render_sphere_view(c2w: np.ndarray, intr: np.ndarray, hw, radius=0.5,

@@ -4,7 +4,8 @@ gens_tpu/mesh/isosurface.py binds it.
 
 The library is compiled from source with ``g++`` at first use into
 ``build/gens_torch/`` (the prebuilt ``native/libisosurface.so`` was built for
-another host's CPU); a failed build raises.
+another host's CPU); a failed build raises. :func:`build_native` builds the
+repository's other native source, ``native/raycast.cpp``, the same way.
 """
 
 from __future__ import annotations
@@ -13,32 +14,40 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "isosurface.cpp")
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gens_torch")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def build_library() -> str:
-    """Compile native/isosurface.cpp unless built; returns the path."""
-    with open(_SRC, "rb") as f:
+def build_native(source: str, flags: Sequence[str] = ()) -> str:
+    """Compile ``native/<source>`` with ``g++ -O3 <flags> -shared -fPIC``
+    into ``build/gens_torch/`` (named by the source's hash) unless built;
+    returns the library's path. A failed build raises."""
+    src = os.path.join(_REPO_ROOT, "native", source)
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    path = os.path.join(_BUILD_DIR, f"libisosurface_{digest}.so")
+    stem = os.path.splitext(source)[0]
+    path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
-                              _SRC], capture_output=True, text=True)
+        res = subprocess.run(["g++", "-O3", *flags, "-shared", "-fPIC", "-o",
+                              tmp, src], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {_SRC}:\n{res.stderr}")
+            raise RuntimeError(f"g++ failed on {src}:\n{res.stderr}")
         os.replace(tmp, path)
     return path
+
+
+def build_library() -> str:
+    """Compile native/isosurface.cpp unless built; returns the path."""
+    return build_native("isosurface.cpp")
 
 
 def _load() -> ctypes.CDLL:

@@ -9,9 +9,10 @@ PSNR logged every ``log_freq`` epochs, checkpoints every ``save_freq`` and
 validation every ``val_freq`` epochs. One device; the JAX runner's prefetch
 thread, preemption guard and sharded loop are later slices.
 
-Validation, per scene: build the scene, extract the mesh through K3, render
-the val ray grid in fixed-size chunks, save images, and compute PSNR and
-depth errors.
+Validation, per scene: build the scene, extract the mesh through K3, clean
+it when ``clean_mesh`` is set (``mesh/clean.py``: the views' masks, then the
+frustum first-hit consensus, before the scale transform), render the val ray
+grid in fixed-size chunks, save images, and compute PSNR and depth errors.
 
 Finetune, per scene (the experiment directory is
 ``<base_exp_dir>/<scene>/view<ref_view>``): build the volumes once from all
@@ -40,6 +41,7 @@ import torch
 
 from gens_torch.config import Config
 from gens_torch.convert import load_checkpoint, load_params
+from gens_torch.mesh.clean import clean_mesh
 from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
@@ -338,7 +340,8 @@ class Runner:
             self.last_scene = scene
             h, w = int(raw["hw"][0]), int(raw["hw"][1])
             mesh_st, rend = self._mesh_and_render(scene, raw, inputs,
-                                                  f"epoch{epoch}", epoch)
+                                                  f"epoch{epoch}", epoch,
+                                                  clean=cfg.clean_mesh)
             st.update(mesh_st)
             scalars = {k: st[k] for k in ("psnr", "color_loss")}
             depth_ref = subsample_to_val_grid(np.asarray(raw["depth_ref"]),
@@ -355,9 +358,12 @@ class Runner:
         return {k: v / max(len(dataset), 1) for k, v in sums.items()}
 
     def _mesh_and_render(self, scene: Scene, raw: Dict, inputs, name: str,
-                         tag) -> Tuple[Dict, Dict[str, np.ndarray]]:
-        """Extract the scene's mesh through K3 (written as
-        ``meshes/<scene>_<name>.ply``), render ``inputs``' rays in chunks and
+                         tag, clean: bool = False
+                         ) -> Tuple[Dict, Dict[str, np.ndarray]]:
+        """Extract the scene's mesh through K3, clean it by ``raw``'s masks
+        and cameras when ``clean`` (as the JAX ``Runner.validate`` does; its
+        finetune validation does not), write it as
+        ``meshes/<scene>_<name>.ply``, render ``inputs``' rays in chunks and
         save the images under ``tag``. Returns (seconds, counts, PSNR and
         colour L1 against ``raw["color"]``; the render). The SDF grid is
         kept in ``last_sdf_grid``."""
@@ -373,6 +379,13 @@ class Runner:
         st["n_tris"] = int(len(tris))
         st["grid_finite"] = bool(np.isfinite(grid).all())
         self.last_sdf_grid = grid
+        if clean and len(verts):
+            t0 = time.perf_counter()
+            verts, tris = clean_mesh(verts, tris, np.asarray(raw["masks"]),
+                                     np.asarray(raw["intrs"]),
+                                     np.asarray(raw["c2ws"]))
+            st["clean_s"] = time.perf_counter() - t0
+            st["n_tris_clean"] = int(len(tris))
         if len(verts):
             verts = apply_transform(verts, np.asarray(raw["scale_mat"]))
         mesh_dir = os.path.join(self.exp_dir, "meshes")

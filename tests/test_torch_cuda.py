@@ -1,7 +1,9 @@
-"""K3, K1 and K2 on the card: each CUDA kernel against its plain PyTorch
-version (K3 on the trained weights, K1 and K2 on random queries), including
-ragged sizes, K1's all-dead queries and both of its bf16 roundings, K2's
-out-of-image and non-finite queries, and the wrappers' input checks.
+"""K3, K1, K2 and P1-P3 on the card: each CUDA kernel against its plain
+PyTorch version (K3 on the trained weights, K1 and K2 on random queries,
+P1-P3 on random tables), including ragged sizes, K1's all-dead queries and
+both of its bf16 roundings, K2's out-of-image and non-finite queries,
+P1/P2's clamped and P3's zero rows for indices outside the table, and the
+wrappers' input checks.
 Imports neither jax nor gens_tpu, so it runs on a machine with only PyTorch
 and the CUDA toolkit:
 
@@ -18,6 +20,7 @@ from gens_torch import convert
 from gens_torch.config import SDFNetConfig
 from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.ops import fused_mlp as fm
+from gens_torch.ops import gather as gk
 from gens_torch.ops import splat as k1
 from gens_torch.ops import window_fwd as k2
 
@@ -202,3 +205,68 @@ def test_window_fwd_wrapper_checks_inputs(card):
         k2.bilerp_window_fwd(img, xy, "float16")
     with pytest.raises(ValueError):
         k2.bilerp_window_fwd(img.cpu(), xy)
+
+
+# P1-P3 against their plain versions: exact (a copy, and a one-hot product
+# with one nonzero term summed in f32)
+GATHERS = {"take": gk.row_gather_take, "take_along": gk.row_gather_take_along,
+           "onehot": gk.onehot_gather}
+
+
+def _gather_inputs(n, rows, width, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((rows, width), generator=g).to(dtype).cuda()
+    idx = torch.randint(0, rows, (n,), generator=g, dtype=torch.int32)
+    return table, idx.cuda()
+
+
+def _plain(probe, table, idx):
+    if probe == "onehot":
+        return gk.onehot_gather_plain(table, idx)
+    return gk.row_gather_plain(table, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [(729, 108), (729, 128),
+                                        (35937, 108), (35937, 128)])
+@pytest.mark.parametrize("n", [1, 255, 100003])
+@pytest.mark.parametrize("probe", sorted(GATHERS))
+def test_gather_probe_matches_plain(card, probe, n, rows, width, dtype):
+    table, idx = _gather_inputs(n, rows, width, dtype, n + rows + width)
+    wrapper = GATHERS[probe]
+    before = wrapper.launches
+    got = wrapper(table, idx)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (n, width)
+    assert torch.equal(got, _plain(probe, table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("probe", sorted(GATHERS))
+def test_gather_probe_outside_the_table(card, probe, dtype):
+    table, _ = _gather_inputs(1, 729, 108, dtype, 0)
+    idx = torch.tensor([-5, -1, 0, 728, 729, 735, 736, 10 ** 9] * 40,
+                       dtype=torch.int32).cuda()
+    got = GATHERS[probe](table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _plain(probe, table, idx))
+    if probe == "onehot":  # an index outside the table gives a zero row
+        outside = (idx < 0) | (idx >= 729)
+        assert torch.count_nonzero(got[outside]) == 0
+    else:  # the row gather clamps
+        assert torch.equal(got[0], table[0]) and torch.equal(got[4], table[728])
+
+
+@pytest.mark.cuda
+def test_gather_probe_wrappers_check_inputs(card):
+    table, idx = _gather_inputs(64, 729, 108, torch.float32, 0)
+    for wrapper in GATHERS.values():
+        with pytest.raises(ValueError):
+            wrapper(table.double(), idx)
+        with pytest.raises(ValueError):
+            wrapper(table, idx.long())
+        with pytest.raises(ValueError):
+            wrapper(table.cpu(), idx)
