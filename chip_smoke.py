@@ -18,8 +18,11 @@ on one NVIDIA GPU.
    512-ray chunks) and a 512³ mesh. The launch counters are zeroed just
    before and read just after; K3 must have launched. Then one 64-plane slab
    of the SDF grid against the plain MLP, K3 against its plain version on
-   one 64³ chunk (262,144 rows) with timings, and the GPU port against the
-   CPU port on a small scene.
+   one 64³ chunk (262,144 rows) with timings (bound: the chunk's FLOP three
+   times, 3xTF32, at the TF32 tensor-core peak; the f32 SIMT bound of the
+   earlier kernel printed beside it) and at n = 127, 128, 129 (one 128-row
+   tile and a row either side), and the GPU port against the CPU port on a
+   small scene.
 4. The train path, through ``gens_torch.main --mode train`` on confs/dtu.yaml
    from a fresh seeded init: 3 synthetic scenes of 5 views (reference + 4
    sources) at 480x640, 512 rays, one epoch = 3 steps. Counters zeroed just
@@ -40,10 +43,13 @@ on one NVIDIA GPU.
    288x400 val rays). Counters zeroed just before and read just after; K2
    must have launched 15 times, all in the volume build (5 scales x 3
    views), K3 512 times. Every loss finite, the five volumes and the sdf,
-   blending and variance modules moved, the mesh not empty, the finetune
-   checkpoint read back equal. init_volumes ms, per-step ms, one step's
-   render / backward / optimizer ms (CUDA events), the validation's mesh
-   and render seconds and the peak device memory.
+   blending and variance modules moved, the validation's grid against the
+   plain MLP on one 64-plane slab, a surface in the mesh of the state the
+   finetune started from (its built volumes, the artifact's MLP), the
+   finetune checkpoint read back equal. init_volumes ms, per-step ms, one
+   step's render / backward / optimizer ms (CUDA events), the validation's
+   mesh and render seconds, its surface's size and margin, and the peak
+   device memory.
 7. K2 against its plain version on the scale-0 (image, xy) of one view
    captured in that run, in both operand dtypes, timed beside the plain
    version and ``F.grid_sample``; the raw volumes under "kernel2f" against
@@ -80,6 +86,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5  # f32 both sides, other sum order
 SLAB_TOL = 1e-4          # the slab adds the cascade lookup, shared by both
@@ -132,7 +139,6 @@ def main() -> int:
 
     from gens_torch.main import main as gens_main
     from gens_torch.mesh import clean, isosurface
-    from gens_torch.mesh.extract import eval_sdf_grid
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
     from gens_torch.ops import window_fwd as k2
@@ -196,16 +202,7 @@ def main() -> int:
     # -- one 64-plane slab of the K3 grid against the plain MLP -------------
     model, scene = runner.model, runner.last_scene
     folded = fm.fold_sdf_mlp(model.sdf, device=dev)
-    scale = model.sdf.cfg.scale
-
-    def plain_sdf(p):
-        x_pe, f_pe = model.sdf.encode(p, scene.volumes)
-        return fm.sdf_mlp_plain(folded, x_pe, f_pe)[:, 0] / scale
-
-    with torch.no_grad():
-        slab = eval_sdf_grid(plain_sdf, [-1, -1, -1], [1, 1, 1], 512, dev,
-                             x_range=(256, 320))
-    slab_err = float(np.abs(slab - runner.last_sdf_grid[256:320]).max())
+    slab_err = k3_slab_err(model.sdf, scene.volumes, runner.last_sdf_grid, dev)
     print(f"slab x=256:320 max |K3 - plain| = {slab_err:.3g}", flush=True)
     assert slab_err <= SLAB_TOL, slab_err
 
@@ -223,18 +220,27 @@ def main() -> int:
         k3_err = float((got - ref).abs().max())
         torch.testing.assert_close(got, ref, rtol=KERNEL_RTOL,
                                    atol=KERNEL_ATOL)
+        for n_edge in (127, 128, 129):
+            torch.testing.assert_close(
+                fm.sdf_mlp_fused(folded, x_pe[:n_edge], f_pe[:n_edge]),
+                fm.sdf_mlp_plain(folded, x_pe[:n_edge], f_pe[:n_edge]),
+                rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
         ms = cuda_ms(lambda: fm.sdf_mlp_fused(folded, x_pe, f_pe), 20)
         plain_ms = cuda_ms(lambda: fm.sdf_mlp_plain(folded, x_pe, f_pe), 10)
         encode_ms = cuda_ms(lambda: model.sdf.encode(pts, scene.volumes), 10)
     n = x_pe.shape[0]
     flops = n * sum(2 * w.shape[0] * w.shape[1] for w, _ in folded.weights)
     n_bytes = (4 * n * (x_pe.shape[1] + f_pe.shape[1] + got.shape[1])
-               + 4 * folded.params.numel())
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+               + 4 * sum(w.numel() + b.numel() for w, b in folded.weights))
+    # 3xTF32: three tensor-core products for every product of the function
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_simt = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     print(f"K3 on {n} rows: {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {max(t_ops, t_bytes):.3f} ms ({flops:.4g} FLOP, "
-          f"{n_bytes:.4g} B), {flops / ms / 1e9:.1f} TFLOP/s; cascade "
+          f"bound {max(t_ops, t_bytes):.3f} ms (3xTF32 at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; f32 SIMT bound "
+          f"{t_simt:.3f} ms; {flops:.4g} FLOP, {n_bytes:.4g} B), "
+          f"{3 * flops / ms / 1e9:.1f} TFLOP/s of TF32 products; cascade "
           f"lookup + PE of the chunk {encode_ms:.3f} ms", flush=True)
     print("render chunk: " + json.dumps(render_breakdown(runner)), flush=True)
 
@@ -284,6 +290,26 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def k3_slab_err(sdf_net, volumes, grid, dev) -> float:
+    """Max |K3 - plain| over the x = 256:320 slab of a 512³ mesh grid on
+    [-1, 1]³ (``grid``, the path's K3 grid), the plain MLP on the same
+    volumes and weights."""
+    from gens_torch.mesh.extract import eval_sdf_grid
+    from gens_torch.ops import fused_mlp as fm
+
+    folded = fm.fold_sdf_mlp(sdf_net, device=dev)
+    scale = sdf_net.cfg.scale
+
+    def plain_sdf(p):
+        x_pe, f_pe = sdf_net.encode(p, volumes)
+        return fm.sdf_mlp_plain(folded, x_pe, f_pe)[:, 0] / scale
+
+    with torch.no_grad():
+        slab = eval_sdf_grid(plain_sdf, [-1, -1, -1], [1, 1, 1], 512, dev,
+                             x_range=(256, 320))
+    return float(np.abs(slab - grid[256:320]).max())
 
 
 def zero_counts() -> None:
@@ -604,7 +630,9 @@ def finetune_path(gens_main, dev):
     volume build; returns K2's launches in that run, the scale-0 (image,
     xy, mm_dtype) of one view, the runner and the volume build's (intrs,
     c2ws)."""
-    from gens_torch.convert import load_checkpoint, params_from_jax
+    from gens_torch.convert import (load_checkpoint, load_params,
+                                    params_from_jax)
+    from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
     from gens_torch.models.gens import GenSModel
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
@@ -675,9 +703,35 @@ def finetune_path(gens_main, dev):
     for st in steps:
         bad = [k for k, v in st.items() if not np.isfinite(v)]
         assert not bad, (st["step"], bad)
-    assert val["n_tris"] > 0, "empty mesh"
     assert val["grid_finite"] and val["render_finite"]
     assert val["rays"] == 288 * 400, val["rays"]
+    # The validation's mesh is held to the plain MLP on the finetuned state.
+    # Whether that state still has a surface is not asserted: the first
+    # Adam steps shift the whole SDF, and the run-to-run float differences
+    # (atomics in the backward) grow into different shifts, so after 6
+    # steps the surface's size varies widely from run to run and can vanish
+    # (an empty mesh, which the JAX runner also allows). The state the
+    # finetune starts from (the run's K2-built volumes, the artifact's MLP)
+    # is the same in every run up to rounding: its mesh, through the same
+    # K3 grid and isosurface, must have a surface.
+    grid = runner.last_sdf_grid
+    assert cfg.mesh_resolution == 512 and grid.shape == (512,) * 3
+    slab_err = k3_slab_err(runner.model.sdf, runner.last_scene.volumes,
+                           grid, dev)
+    assert slab_err <= SLAB_TOL, slab_err
+    start = GenSModel(cfg.model)
+    load_params(start, artifact)
+    start_sdf = start.sdf.to(dev)
+    with torch.no_grad():
+        start_grid = eval_sdf_grid(
+            fm.sdf_fused_fn(start_sdf, build["volumes"]), [-1, -1, -1],
+            [1, 1, 1], cfg.mesh_resolution, dev)
+    _, start_tris = grid_to_mesh(start_grid, [-1, -1, -1], [1, 1, 1])
+    assert len(start_tris) > 0, "empty mesh at the finetune's start"
+    surface = {"n_tris": val["n_tris"], "outside_margin": float(-grid.min()),
+               "slab_max_abs_err": slab_err, "start_n_tris": len(start_tris),
+               "start_outside_margin": float(-start_grid.min())}
+    del start, start_sdf, start_grid, start_tris
 
     # every trained tensor moved from where the run started
     step = runner.ft_step
@@ -721,7 +775,7 @@ def finetune_path(gens_main, dev):
         "val_mesh_grid_s": val["mesh_grid_s"],
         "val_isosurface_s": val["isosurface_s"], "val_render_s": val["render_s"],
         "val_rays": val["rays"], "val_rays_per_s": val["rays_per_s"],
-        "val_psnr": val["psnr"], "n_tris": val["n_tris"],
+        "val_psnr": val["psnr"], "surface": surface,
         "peak_mem_gb": peak_gb, "k2_launches": launches,
         "k2_launches_in_build": build["k2"], "k3_launches": k3_launches,
         "losses": {k: v for k, v in steps[-1].items()

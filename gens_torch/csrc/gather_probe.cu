@@ -30,19 +30,23 @@
 // onehot_gather (P3): out = (onehot(idx) as bf16) @ bf16(table), the sum in
 // f32, cast to the table's dtype. The point of k_onehot is that the matrix
 // unit does the addressing, so the product stays dense, as on the TPU: every
-// k-chunk of the table is multiplied, including those no index hits. A CTA
-// owns 128 output rows and up to 128 columns (grid.y walks wider tables);
-// per k-chunk of 64 table rows it builds the one-hot A tile (128 x 64 bf16)
-// in shared memory from its indices, streams the chunk of the table into
-// shared memory (both with rows padded by 16 bytes against bank conflicts)
-// rounded f32 -> bf16 with round-to-nearest-even
-// (__float2bfloat16_rn, as astype), and each of its 8 warps multiplies its
-// 16 rows by the chunk on the tensor cores (nvcuda::wmma, bf16 m16n16k16
-// with f32 accumulators). The width is padded to a multiple of 16 and the
-// table rows to a multiple of 64 with zeros; ragged rows and columns are
-// masked at the store. The result is exact -- one nonzero term, f32 sums --
-// except that a non-finite table entry gives 0 * inf = NaN in its column.
-// An index outside [0, rows) matches no table row and gives a zero row.
+// k-chunk of the table is multiplied, including those no index hits.
+//
+// A pre-pass writes the table once as bf16 (rounded to nearest even, as
+// astype), transposed to (width, rows) -- the K-major B operand -- with the
+// width padded to 16 and the rows to the 64-row k-chunk with zeros, into
+// scratch the wrapper allocates. The product kernel is warp-specialised: a
+// CTA owns 256 output rows and 128 columns (grid.y walks wider tables); one
+// producer thread streams the (128 columns x 64 rows) chunks of the table by
+// TMA, 128-byte swizzled, through a ring of 4 stages with mbarriers; two
+// consumer warpgroups of two m64 tiles each multiply them with
+// wgmma.m64n128k16 (bf16, f32 accumulators in registers). The one-hot A
+// operand never exists in memory: each thread holds the indices of its 4
+// rows and builds its A fragments for a k-step by comparison, in registers.
+// The output is stored from the accumulators, masked at the ragged rows and
+// columns. The result is exact -- one nonzero term, f32 sums -- except that
+// a non-finite table entry gives 0 * inf = NaN in its column. An index
+// outside [0, rows) matches no table row and gives a zero row.
 //
 // What bounds it: operations. 2 N rows W flop of bf16 tensor-core work
 // (2^20 x 4096 x 128: 1.1e12, 1.1 ms at 989 TFLOP/s) against the same bytes
@@ -56,14 +60,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-// -- row gather ----------------------------------------------------------------
+// -- row gather ---------------------------------------------------------------
 
 template <int U>
 struct Unit;
@@ -158,18 +163,17 @@ void launch_row_gather(const int* idx, const char* table, char* out,
   }
 }
 
-// -- one-hot product -------------------------------------------------------------
+// -- one-hot product ----------------------------------------------------------
 
-constexpr int TM = 128;  // output rows (indices) of a CTA: 8 warps x 16
-constexpr int TN = 128;  // output columns of a CTA: 8 tiles of 16
-constexpr int KC = 64;   // table rows per k-chunk
-constexpr int NT = TN / 16;
-// shared-memory row pitches, padded by 16 bytes so that the 16 rows of a
-// wmma tile fall in different banks
-constexpr int LDA = KC + 8;
-constexpr int LDB = TN + 8;
-static_assert(TM * KC / 2 % THREADS == 0 && KC * TN / 2 % THREADS == 0,
-              "the tile builds split evenly over the threads");
+namespace p3 {
+
+constexpr int TM = 256;       // output rows of a CTA: 2 warpgroups x 2 m64
+constexpr int BN = 128;       // output columns of a CTA (grid.y walks wider)
+constexpr int KC = 64;        // table rows a stage: one 128-byte bf16 row
+constexpr int STAGES = 4;
+constexpr int THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int STAGE_BYTES = BN * KC * 2;  // 16 KB = 16 x 1024
+constexpr int PRE = 32;       // pre-pass tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -179,90 +183,192 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);  // exact: x is a bf16 value or 0
 }
+// two neighbours at an even element offset of an even-width row
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// tt (width_p, rows_p) = bf16(table)^T, rounded to nearest even as astype,
+// zero outside the table: the K-major B operand of the product.
+template <typename T>
+__global__ void __launch_bounds__(PRE * 8)
+onehot_prepass(const T* __restrict__ table, __nv_bfloat16* __restrict__ tt,
+               int rows, int width, int rows_p, int width_p) {
+  __shared__ float tile[PRE][PRE + 1];
+  const int k0 = blockIdx.x * PRE, c0 = blockIdx.y * PRE;
+  for (int i = threadIdx.y; i < PRE; i += 8) {
+    const int k = k0 + i, c = c0 + threadIdx.x;
+    tile[i][threadIdx.x] =
+        k < rows && c < width
+            ? to_float(table[static_cast<long long>(k) * width + c])
+            : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < PRE; i += 8) {
+    const int c = c0 + i, k = k0 + threadIdx.x;
+    if (c < width_p && k < rows_p)
+      tt[static_cast<long long>(c) * rows_p + k] =
+          __float2bfloat16_rn(tile[threadIdx.x][i]);
+  }
+}
+
+// The pair of one-hot bf16 values at columns (c, c + 1) of a row whose
+// index lies d = idx - c past c: 1.0 (0x3F80) where it matches.
+__device__ __forceinline__ uint32_t onehot_pair(int d) {
+  return (d == 0 ? 0x3F80u : 0u) | (d == 1 ? 0x3F800000u : 0u);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-onehot_kernel(const int* __restrict__ idx, const T* __restrict__ table,
-              T* __restrict__ out, long long n, int rows, int width) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 a_s[TM * LDA];  // 18 KB
-  __shared__ __align__(32) __nv_bfloat16 b_s[KC * LDB];  // 17 KB
-  __shared__ __align__(32) float c_s[THREADS / 32][16 * 16];  // 8 KB
-  __shared__ int idx_s[TM];
-
+__global__ void __launch_bounds__(THREADS, 1)
+onehot_tc_kernel(const __grid_constant__ CUtensorMap tmap,
+                 const int* __restrict__ idx, T* __restrict__ out, long long n,
+                 int width, int n_chunks) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid % 32;
+  // warp-uniform as far as the compiler can tell, so that the wgmma of
+  // the consumer branch are not serialised as if in a divergent path
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
   const long long m0 = static_cast<long long>(blockIdx.x) * TM;
-  const int n0 = blockIdx.y * TN;
-  const int ncols = min(TN, width - n0);
-  const int ntiles = (ncols + 15) / 16;  // the same for every warp
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int m = tid; m < TM; m += THREADS)
-    idx_s[m] = m0 + m < n ? idx[m0 + m] : -1;  // -1 matches no table row
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int k0 = 0; k0 < rows; k0 += KC) {
-    __syncthreads();  // the last chunk's tiles are read (and idx_s written)
-    // two bf16 per 4-byte store; the loops are unrolled so that a thread's
-    // loads of the table chunk are all in flight at once
-#pragma unroll
-    for (int it = 0; it < TM * KC / 2 / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int m = e / (KC / 2), k = 2 * (e % (KC / 2));
-      const int i = idx_s[m];
-      *reinterpret_cast<__nv_bfloat162*>(a_s + m * LDA + k) =
-          __floats2bfloat162_rn(i == k0 + k ? 1.0f : 0.0f,
-                                i == k0 + k + 1 ? 1.0f : 0.0f);
+  const int n0 = blockIdx.y * BN;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int it = 0; it < KC * TN / 2 / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int k = e / (TN / 2), c = 2 * (e % (TN / 2));
-      float v0 = 0.0f, v1 = 0.0f;
-      if (k0 + k < rows) {
-        const T* row = table + static_cast<long long>(k0 + k) * width + n0;
-        if (c < ncols) v0 = to_float(row[c]);
-        if (c + 1 < ncols) v1 = to_float(row[c + 1]);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(b_s + k * LDB + c) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::load_matrix_sync(a, a_s + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (j < ntiles) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              b;
-          wmma::load_matrix_sync(b, b_s + kk * LDB + j * 16, LDB);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: (BN columns x KC table rows) a stage
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], STAGE_BYTES);
+        tma_load_2d(ring + stage * STAGE_BYTES, &tmap, c * KC, n0,
+                    &full[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
+    return;
   }
 
-  // through the warp's scratch tile to the masked, cast store
+  // consumers: warpgroup wg owns rows [128 wg, 128 wg + 128) in two m64
+  // tiles; a thread holds the indices of its rows g and g + 8 of each
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  int ix[2][2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (j < ntiles) {
-      wmma::store_matrix_sync(c_s[warp], acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const long long m = m0 + warp * 16 + e / 16;
-        const int col = j * 16 + e % 16;
-        if (m < n && col < ncols) store(out + m * width + n0 + col, c_s[warp][e]);
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m =
+          m0 + 128 * wg + 64 * mt + 16 * (warp % 4) + g + 8 * h;
+      ix[mt][h] = m < n ? idx[m] : -1;  // -1 matches no table row
+    }
+  float acc[2][64];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    // the one-hot A fragments of the chunk's 4 k-steps, built in registers
+    uint32_t a[2 * (KC / 16)][4];  // [2 ks + mt]
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      const int kb = c * KC + 16 * ks + 2 * t;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int d0 = ix[mt][0] - kb, d1 = ix[mt][1] - kb;
+        a[2 * ks + mt][0] = onehot_pair(d0);
+        a[2 * ks + mt][1] = onehot_pair(d1);
+        a[2 * ks + mt][2] = onehot_pair(d0 - 8);
+        a[2 * ks + mt][3] = onehot_pair(d1 - 8);
       }
-      __syncwarp();
+    }
+    mbar_wait(&full[stage], phase);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    wgmma_fence();
+    const uint64_t desc = sw128_desc(ring + stage * STAGE_BYTES);
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      wgmma_m64n128k16_bf16(acc[0], a[2 * ks], desc + 2 * ks);
+      wgmma_m64n128k16_bf16(acc[1], a[2 * ks + 1], desc + 2 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+
+  // from the accumulators, masked at the ragged rows and columns
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m =
+          m0 + 128 * wg + 64 * mt + 16 * (warp % 4) + g + 8 * h;
+      if (m >= n) continue;
+      T* row = out + m * width;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float x = acc[mt][4 * j + 2 * h], y = acc[mt][4 * j + 2 * h + 1];
+        if (col + 1 < width && width % 2 == 0) {
+          store2(row + col, x, y);
+        } else {
+          if (col < width) store(row + col, x);
+          if (col + 1 < width) store(row + col + 1, y);
+        }
+      }
+    }
 }
+
+template <typename T>
+int launch_onehot(const int* idx, const T* table, T* out, __nv_bfloat16* tt,
+                  long long n, int rows, int width, cudaStream_t stream) {
+  const int rows_p = (rows + KC - 1) / KC * KC;
+  const int width_p = (width + 15) / 16 * 16;
+  const dim3 pgrid(rows_p / PRE, (width_p + PRE - 1) / PRE);
+  onehot_prepass<T><<<pgrid, dim3(PRE, 8), 0, stream>>>(table, tt, rows, width,
+                                                        rows_p, width_p);
+  CUtensorMap tmap;
+  const int rc = hopper::encode_2d(&tmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, tt,
+                                   rows_p, width_p, 2ull * rows_p, KC, BN,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
+  const int smem = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      onehot_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n + TM - 1) / TM),
+                  static_cast<unsigned>((width + BN - 1) / BN));
+  onehot_tc_kernel<T><<<grid, THREADS, smem, stream>>>(tmap, idx, out, n,
+                                                       width, rows_p / KC);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace p3
 
 }  // namespace
 
@@ -293,22 +399,27 @@ int row_gather(const int* idx, const void* table, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bytes of the scratch onehot_gather needs: the bf16 table, transposed and
+// padded (width to 16, rows to the k-chunk).
+long long onehot_scratch_bytes(int rows, int width) {
+  return 2LL * ((width + 15) / 16 * 16) *
+         ((rows + p3::KC - 1) / p3::KC * p3::KC);
+}
+
 // idx (n,) int32; table (rows, width) and out (n, width), both bf16
-// (bf16 = 1) or both f32.
-int onehot_gather(const int* idx, const void* table, void* out, long long n,
-                  int rows, int width, int bf16, cudaStream_t stream) {
+// (bf16 = 1) or both f32; scratch: onehot_scratch_bytes(rows, width) bytes.
+int onehot_gather(const int* idx, const void* table, void* out, void* scratch,
+                  long long n, int rows, int width, int bf16,
+                  cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned>((n + TM - 1) / TM),
-                  static_cast<unsigned>((width + TN - 1) / TN));
+  __nv_bfloat16* tt = static_cast<__nv_bfloat16*>(scratch);
   if (bf16)
-    onehot_kernel<__nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        idx, static_cast<const __nv_bfloat16*>(table),
-        static_cast<__nv_bfloat16*>(out), n, rows, width);
-  else
-    onehot_kernel<float><<<grid, THREADS, 0, stream>>>(
-        idx, static_cast<const float*>(table), static_cast<float*>(out), n,
-        rows, width);
-  return static_cast<int>(cudaGetLastError());
+    return p3::launch_onehot(idx, static_cast<const __nv_bfloat16*>(table),
+                             static_cast<__nv_bfloat16*>(out), tt, n, rows,
+                             width, stream);
+  return p3::launch_onehot(idx, static_cast<const float*>(table),
+                           static_cast<float*>(out), tt, n, rows, width,
+                           stream);
 }
 
 }  // extern "C"

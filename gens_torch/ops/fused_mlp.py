@@ -1,5 +1,5 @@
 """K3: the fused, gradient-free SDF-MLP forward -- the CUDA kernel
-``csrc/sdf_mlp.cu`` and its plain PyTorch version.
+``csrc/sdf_mlp.cu`` (tensor cores, 3xTF32) and its plain PyTorch version.
 
 Counterpart of gens_tpu/ops/pallas_mlp.py (``sdf_mlp_fused``,
 ``sdf_fused_fn``). It serves dense SDF-grid evaluation for mesh extraction.
@@ -7,8 +7,14 @@ Counterpart of gens_tpu/ops/pallas_mlp.py (``sdf_mlp_fused``,
 :func:`sdf_mlp_fused` launches the kernel for CUDA tensors and takes
 :func:`sdf_mlp_plain` only for tensors on the CPU; any other device raises.
 The kernel is compiled at first use with ``nvcc`` from ``csrc/sdf_mlp.cu``
-into ``build/gens_torch/`` (named by the source's hash) and loaded with
-ctypes. ``sdf_mlp_fused.launches`` counts kernel launches.
+into ``build/gens_torch/`` (named by the hash of the source and its
+headers) and loaded with ctypes. ``sdf_mlp_fused.launches`` counts kernel launches.
+
+The kernel multiplies in 3xTF32: each operand v is split into
+``hi = tf32_rna(v)`` and ``lo = tf32_rna(v - hi)`` and the product taken as
+hi·hi + hi·lo + lo·hi with f32 sums. :func:`fold_sdf_mlp` splits the weights
+once, on the host, into the packed K-major tiles the kernel streams
+(:func:`pack_tc`); the kernel splits the activations in registers.
 """
 
 from __future__ import annotations
@@ -23,24 +29,70 @@ from gens_torch.config import SDFNetConfig
 from gens_torch.ops.cuda_build import build_library
 
 _INV_SQRT2 = 0.70710678118654752
+TC_N = 136   # the kernel's wgmma width: every layer's outputs padded to it
+TC_KS = 16   # weight K-rows per TMA stage (one 64-byte row of f32)
 
 
 @dataclass
 class FoldedMLP:
     """The SDF MLP with weight norm folded in, as K3 takes it.
 
-    ``weights``: per layer (W (in, out), b (out,)) f32; ``params``: all of
-    them packed into one flat f32 tensor at ``w_off`` / ``b_off``;
-    ``skip[l]``: layer l's input is [h, PE(x)] / √2 (+ feats)."""
+    ``weights``: per layer (W (in, out), b (out,)) f32, the plain
+    version's truth; ``skip[l]``: layer l's input is [h, PE(x)] / √2
+    (+ feats); ``tc`` and ``bias``: the weights as the kernel takes them
+    (:func:`pack_tc`), None when a layer is wider than ``TC_N``."""
 
     weights: List[Tuple[torch.Tensor, torch.Tensor]]
-    params: torch.Tensor
-    w_off: List[int]
-    b_off: List[int]
     skip: List[int]
     d_x: int
     d_feat: int
     d_hidden: int
+    tc: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 explicit mantissa bits, the low 13 bits zero)
+    to nearest, ties away from zero, as ``cvt.rna.tf32.f32``; inf and NaN
+    pass unchanged."""
+    b = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    finite = (b & 0x7F800000) != 0x7F800000
+    r = torch.where(finite, (b + 0x1000) & 0xFFFFE000, b)
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32_rna(x), lo = tf32_rna(x - hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x.float() - hi)
+
+
+def tc_k_alloc(weights) -> int:
+    """Row length of the packed tiles: the widest K, rounded up to a k-step
+    of 8, then to a TMA stage."""
+    k_pad = max(-(-w.shape[0] // 8) * 8 for w, _ in weights)
+    return -(-k_pad // TC_KS) * TC_KS
+
+
+def pack_tc(weights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weights as the kernel streams them: (2 L TC_N, ka) f32, layer l's
+    hi tile at rows [2l TC_N, (2l+1) TC_N) and its lo tile after it, each
+    W^T (K-major) split by :func:`split_tf32`, zero padded to TC_N outputs
+    and ka = :func:`tc_k_alloc` inputs; and the biases, (L, TC_N) f32,
+    zero padded."""
+    ka = tc_k_alloc(weights)
+    dev = weights[0][0].device
+    tiles = torch.zeros((2 * len(weights) * TC_N, ka), dtype=torch.float32,
+                        device=dev)
+    bias = torch.zeros((len(weights), TC_N), dtype=torch.float32, device=dev)
+    for l, (w, b) in enumerate(weights):
+        k, n = w.shape
+        hi, lo = split_tf32(w.t())
+        tiles[2 * l * TC_N:2 * l * TC_N + n, :k] = hi
+        tiles[(2 * l + 1) * TC_N:(2 * l + 1) * TC_N + n, :k] = lo
+        bias[l, :n] = b
+    return tiles, bias
 
 
 def fold_sdf_mlp(sdf_net, device=None) -> FoldedMLP:
@@ -65,15 +117,9 @@ def fold_sdf_mlp(sdf_net, device=None) -> FoldedMLP:
         if hidden != d_hidden or weights[l][0].shape[0] != d_hidden + d_feat:
             raise ValueError(f"layer {l}: input is not [hidden {d_hidden} | "
                              f"feats {d_feat}]")
-    flat, w_off, b_off, off = [], [], [], 0
-    for w, b in weights:
-        w_off.append(off)
-        off += w.numel()
-        b_off.append(off)
-        off += b.numel()
-        flat += [w.reshape(-1), b]
-    return FoldedMLP(weights, torch.cat(flat).contiguous(), w_off, b_off,
-                     skip, d_x, d_feat, d_hidden)
+    if max(w.shape[1] for w, _ in weights) > TC_N:
+        return FoldedMLP(weights, skip, d_x, d_feat, d_hidden)
+    return FoldedMLP(weights, skip, d_x, d_feat, d_hidden, *pack_tc(weights))
 
 
 def sdf_mlp_plain(fm: FoldedMLP, x_pe: torch.Tensor,
@@ -105,12 +151,9 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_library("sdf_mlp.cu")[0])
         lib.sdf_mlp_forward.restype = ctypes.c_int
         lib.sdf_mlp_forward.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int]
-            + [ctypes.POINTER(ctypes.c_int)] * 3
-            + [ctypes.POINTER(ctypes.c_longlong)] * 2
-            + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_longlong] + [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p])
         lib.sdf_mlp_max_width.restype = ctypes.c_int
         lib.sdf_mlp_max_width.argtypes = []
         _lib = lib
@@ -126,23 +169,23 @@ def _launch(fm: FoldedMLP, x_pe: torch.Tensor, feats_pe: torch.Tensor
                 or t.shape[1] != width or not t.is_contiguous()):
             raise ValueError(f"K3 takes contiguous f32 ({n}, {width}) inputs, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    if fm.params.device != x_pe.device or feats_pe.device != x_pe.device:
-        raise ValueError("K3 inputs and weights must be on one device")
     widths = [w.shape[1] for w, _ in fm.weights]
-    if max(widths) > lib.sdf_mlp_max_width():
-        raise ValueError(f"K3 handles layers up to {lib.sdf_mlp_max_width()} "
-                         f"wide, got {max(widths)}")
+    if fm.tc is None or lib.sdf_mlp_max_width() != TC_N:
+        raise ValueError(f"K3 handles layers up to {TC_N} wide, got "
+                         f"{max(widths)}")
+    if {fm.tc.device, fm.bias.device, feats_pe.device} != {x_pe.device}:
+        raise ValueError("K3 inputs and weights must be on one device")
     L = len(fm.weights)
     ints = ctypes.c_int * L
-    longs = ctypes.c_longlong * L
     out = torch.empty((n, widths[-1]), dtype=torch.float32,
                       device=x_pe.device)
     stream = torch.cuda.current_stream(x_pe.device).cuda_stream
     rc = lib.sdf_mlp_forward(
-        x_pe.data_ptr(), feats_pe.data_ptr(), fm.params.data_ptr(),
-        out.data_ptr(), n, L, fm.d_x, fm.d_feat, fm.d_hidden,
+        x_pe.data_ptr(), feats_pe.data_ptr(), fm.tc.data_ptr(),
+        fm.bias.data_ptr(), out.data_ptr(), n, L, fm.d_x, fm.d_feat,
+        fm.d_hidden, fm.tc.shape[1],
         ints(*[w.shape[0] for w, _ in fm.weights]), ints(*widths),
-        ints(*fm.skip), longs(*fm.w_off), longs(*fm.b_off), stream)
+        ints(*fm.skip), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
     sdf_mlp_fused.launches += 1

@@ -13,10 +13,11 @@ Counterparts of the Pallas kernels of the TPU gather-cost probes:
 P1 and P2 compute one function, ``out[n] = table[idx[n]]``, and differ only
 in how Mosaic lowers it; one CUDA kernel serves both, through two wrappers
 (:func:`row_gather_take`, :func:`row_gather_take_along`) with two launch
-counts. :func:`onehot_gather` is P3 on the tensor cores. Indices outside
-[0, rows) are outside the probes' contract; the row gather clamps them (as
-XLA's gather does) and the one-hot product gives a zero row for them, in the
-kernels and in the plain versions alike.
+counts. :func:`onehot_gather` is P3 on the tensor cores (wgmma, the
+one-hot operand built in registers, the table streamed by TMA). Indices
+outside [0, rows) are outside the probes' contract; the row gather clamps
+them (as XLA's gather does) and the one-hot product gives a zero row for
+them, in the kernels and in the plain versions alike.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU; any other device raises. The kernels
@@ -91,8 +92,10 @@ def _load() -> ctypes.CDLL:
             + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.onehot_gather.restype = ctypes.c_int
         lib.onehot_gather.argtypes = (
-            [ctypes.c_void_p] * 3
+            [ctypes.c_void_p] * 4
             + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.onehot_scratch_bytes.restype = ctypes.c_longlong
+        lib.onehot_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib = lib
     return _lib
 
@@ -150,19 +153,24 @@ def row_gather_take_along(table: torch.Tensor, idx: torch.Tensor
 
 def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P3, ``onehot(idx) @ bf16(table)`` with f32 sums, cast to the table's
-    dtype. CUDA tensors launch the tensor-core kernel; CPU tensors take
-    :func:`onehot_gather_plain`."""
+    dtype. CUDA tensors launch the tensor-core kernel (a bf16 pre-pass of
+    the table into scratch, then the product; one launch is counted); CPU
+    tensors take :func:`onehot_gather_plain`."""
     _check(table, idx, "onehot_gather")
     if idx.device.type == "cpu":
         return onehot_gather_plain(table, idx)
     if idx.device.type != "cuda":
         raise ValueError(f"onehot_gather has no path for device {idx.device}")
     rows, width = table.shape
+    lib = _load()
     out = torch.empty((idx.shape[0], width), dtype=table.dtype,
                       device=idx.device)
-    rc = _load().onehot_gather(
-        idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0], rows,
-        width, int(table.dtype == torch.bfloat16),
+    # the pre-pass's bf16 table, transposed and padded (part of the call)
+    scratch = torch.empty((lib.onehot_scratch_bytes(rows, width),),
+                          dtype=torch.uint8, device=idx.device)
+    rc = lib.onehot_gather(
+        idx.data_ptr(), table.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        idx.shape[0], rows, width, int(table.dtype == torch.bfloat16),
         torch.cuda.current_stream(idx.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather launch failed: CUDA error {rc}")

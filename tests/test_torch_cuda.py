@@ -1,6 +1,7 @@
 """K3, K1, K2 and P1-P3 on the card: each CUDA kernel against its plain
 PyTorch version (K3 on the trained weights, K1 and K2 on random queries,
-P1-P3 on random tables), including ragged sizes, K1's all-dead queries and
+P1-P3 on random tables), including ragged sizes (K3 at one 128-row tile
+and one row either side, P3 at widths 8 and 136), K1's all-dead queries and
 both of its bf16 roundings, K2's out-of-image and non-finite queries,
 P1/P2's clamped and P3's zero rows for indices outside the table, and the
 wrappers' input checks.
@@ -48,7 +49,7 @@ def _inputs(n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 63, 64, 1000, 65537])
+@pytest.mark.parametrize("n", [1, 63, 64, 127, 128, 129, 1000, 65537, 262144])
 def test_kernel_matches_plain(folded, n):
     x, f = _inputs(n, n)
     before = fm.sdf_mlp_fused.launches
@@ -241,6 +242,21 @@ def test_gather_probe_matches_plain(card, probe, n, rows, width, dtype):
     assert wrapper.launches == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (n, width)
     assert torch.equal(got, _plain(probe, table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", [(729, 8), (729, 136), (35937, 8),
+                                        (35937, 136)])
+@pytest.mark.parametrize("n", [1, 255, 100003])
+def test_onehot_narrow_and_two_column_tiles(card, n, rows, width, dtype):
+    """P3 at a width under one k-step of padding (8) and over one column
+    tile (136: a second, mostly padded tile of 128)."""
+    table, idx = _gather_inputs(n, rows, width, dtype, n + rows + width)
+    got = gk.onehot_gather(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (n, width)
+    assert torch.equal(got, gk.onehot_gather_plain(table, idx))
 
 
 @pytest.mark.cuda
