@@ -74,7 +74,23 @@ on one NVIDIA GPU.
    shape at 2^20 indices, timed beside their bound, the plain version and
    the library calls (``index_select``; for P3 also cuBLAS ``matmul`` of
    the same one-hot).
-10. Prints the card line, the kernels JSON line and, last, the ok line.
+10. The DTU and BlendedMVS readers, through ``gens_torch.main`` with only
+   the data paths and the run length overridden, on trees written under
+   build/ at the datasets' on-disk sizes (the synthetic sphere rendered
+   from DTU-like rigs: 49 MVSNet cameras at 1600x1200, depth 425-905 mm,
+   scan24 light 3 images, masks, PFM depths and pseudo depths at
+   1200x1600 for 10 views; a BlendedMVS scene of 5 views, masked JPEGs at
+   576x768). confs/dtu.yaml trains 3 steps (ref views 0-2; K1 25 a step,
+   2048 pseudo points a step; per step the wait on the prefetch queue and
+   an item's decode time), then ``--resume auto`` trains epoch 1 from the
+   first run's checkpoint, with the config's validation at its end (K3
+   512); logs/metrics.jsonl holds the train and train_avg records.
+   ``--mode val`` on the trained artifact (K3 512, depth PNGs in magma);
+   confs/dtu_finetune.yaml, 6 steps under ``kernel2f`` (K2 15, all in the
+   volume build; K3 512 at its validation); a small DTU training step GPU
+   against CPU; confs/bmvs.yaml ``--mode val`` (K3 512). Counters zeroed
+   just before and read just after each run.
+11. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -280,6 +296,9 @@ def main() -> int:
     # -- the gather probes, through their entry point ----------------------
     gather_launches = gather_probe_path()
     gather_rows = gather_phase(gather_launches)
+
+    # -- the DTU and BlendedMVS readers, through the entry points ------------
+    dtu_path(gens_main, dev)
 
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
@@ -702,10 +721,11 @@ def k1_footprint(xy, ct, hw, dim, tile_pixels) -> dict:
     return out
 
 
-def check_small_train(dev) -> None:
+def check_small_train(dev, raw=None, name="train step") -> None:
     """One training step of a tiny seeded model on the GPU (K1 in the
     aggregation backward) and on the CPU (its plain version), same batch and
-    draws: the loss and the feature-net and SDF gradients agree."""
+    draws: the loss and the feature-net and SDF gradients agree. The batch
+    is ``raw`` (a dataset item), else a synthetic scene's."""
     from gens_torch.config import Config
     from gens_torch.data.synthetic import SyntheticDataset
     from gens_torch.models.gens import GenSModel
@@ -723,19 +743,20 @@ def check_small_train(dev) -> None:
     models = {"cpu": GenSModel(m)}
     models["gpu"] = GenSModel(m).to(dev)
     models["gpu"].load_state_dict(models["cpu"].state_dict())
-    raw = SyntheticDataset(1, 3, (64, 64), n_rays=64, n_pseudo_pts=64,
-                           mode="train")[0]
+    if raw is None:
+        raw = SyntheticDataset(1, 3, (64, 64), n_rays=64, n_pseudo_pts=64,
+                               mode="train")[0]
     sparse = torch.rand((64, 3), generator=torch.Generator().manual_seed(1))
     loss, grads = {}, {}
-    for name, d in (("cpu", "cpu"), ("gpu", dev)):
+    for side, d in (("cpu", "cpu"), ("gpu", dev)):
         inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
                   for k, v in raw.items()
                   if isinstance(v, np.ndarray) and v.dtype == np.float32}
-        step = TrainStep(models[name], cfg, 1)
+        step = TrainStep(models[side], cfg, 1)
         out = step(inputs, 0.5, sparse_pts=sparse * 2 - 1)
-        loss[name] = float(out["loss"])
-        grads[name] = {k: p.grad.detach().cpu()
-                       for k, p in models[name].named_parameters()
+        loss[side] = float(out["loss"])
+        grads[side] = {k: p.grad.detach().cpu()
+                       for k, p in models[side].named_parameters()
                        if p.grad is not None}
     rel = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
     errs = {}
@@ -744,7 +765,7 @@ def check_small_train(dev) -> None:
         a = torch.cat([grads["cpu"][k].reshape(-1) for k in keys])
         b = torch.cat([grads["gpu"][k].reshape(-1) for k in keys])
         errs[top] = float((a - b).norm() / a.norm())
-    print("train step GPU vs CPU port: " + json.dumps({
+    print(f"{name} GPU vs CPU port: " + json.dumps({
         "loss": loss, "loss_rel_err": rel, "grad_rel_err": errs}),
         flush=True)
     assert rel <= TRAIN_LOSS_RTOL, rel
@@ -1220,6 +1241,376 @@ def gather_phase(launches) -> list:
             **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}})
     return rows
+
+
+# -- the DTU and BlendedMVS paths ---------------------------------------------
+
+# the DTU-layout tree: 49 cameras calibrated at 1600x1200 (DTU's focal
+# lengths and principal point), depth range 425 + 2.5 * 192 = 905 mm; images,
+# masks, depth maps and pseudo depths of scan24, light 3, for DTU_VIEWS at
+# DTU's 1200x1600. The content is the synthetic sphere, rendered in units of
+# DTU_UNIT mm (radius 0.5 = 100 mm) from cameras about 600 mm out.
+DTU_K = np.array([[2892.33, 0.0, 823.21], [0.0, 2883.18, 619.07],
+                  [0.0, 0.0, 1.0]])
+DTU_VIEWS = (0, 1, 2, 3, 4, 5, 6, 22, 23, 24)
+DTU_UNIT = 200.0
+DTU_SCAN = "scan24"
+BMVS_SCENE = "5bsyntheticsphere0000000"
+BMVS_VIEWS = 5
+
+
+def rig_c2w(k: int, dist: float) -> np.ndarray:
+    """c2w (in sphere units) of the k-th camera of a cluster looking at the
+    origin: azimuths 12 degrees apart in rows of five, rows 15 degrees
+    apart in elevation."""
+    from gens_torch.data.synthetic import look_at
+
+    az = np.radians((k % 5 - 2) * 12.0)
+    el = np.radians(30.0 + (k // 5) * 15.0)
+    eye = dist * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                           np.sin(el)], np.float32)
+    return look_at(eye, np.zeros(3, np.float32))
+
+
+def render_view(c2w, K, hw):
+    """(RGB uint8, mask, z-depth in sphere units) of the synthetic sphere."""
+    from gens_torch.data.synthetic import (render_sphere_view, shape_spheres,
+                                           trace_spheres)
+
+    img, mask = render_sphere_view(c2w, K.astype(np.float32), hw,
+                                   return_mask=True)
+    H, W = hw
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    cam = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float32) \
+        @ np.linalg.inv(K).T.astype(np.float32)
+    cam /= np.linalg.norm(cam, axis=-1, keepdims=True)
+    t, hit, _ = trace_spheres(c2w[:3, 3], cam @ c2w[:3, :3].T,
+                              *shape_spheres())
+    depth = np.where(hit, t * cam[..., 2], 0.0).astype(np.float32)
+    return (img * 255).astype(np.uint8), mask, depth
+
+
+def write_cam(path, w2c, K, depth_min, depth_interval):
+    """An MVSNet camera file."""
+    rows = ["extrinsic"] + [" ".join(f"{v:.9f}" for v in r) for r in w2c]
+    rows += ["", "intrinsic"] + [" ".join(f"{v:.6f}" for v in r) for r in K]
+    rows += ["", f"{depth_min} {depth_interval}"]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_pfm(path, data):
+    h, w = data.shape
+    with open(path, "wb") as f:
+        f.write(f"Pf\n{w} {h}\n-1.0\n".encode())
+        np.flipud(data.astype("<f4")).tofile(f)
+
+
+def write_pairs(path, centers, written):
+    """pair.txt: per view, the 10 nearest views that have images (the
+    last repeated where fewer are written)."""
+    with open(path, "w") as f:
+        f.write(f"{len(centers)}\n")
+        for ref, c in enumerate(centers):
+            src = sorted((v for v in written if v != ref),
+                         key=lambda v: np.linalg.norm(centers[v] - c))[:10]
+            src += src[-1:] * (10 - len(src))
+            f.write(f"{ref}\n{len(src)} " + " ".join(
+                f"{v} {100.0 - k}" for k, v in enumerate(src)) + "\n")
+
+
+def write_dtu_tree(root: str) -> str:
+    """The DTU-layout tree under ``root`` (written once)."""
+    from gens_torch.data.dtu import PSEUDO_SCALE
+    from gens_torch.data.image_io import write_png
+
+    done = os.path.join(root, "complete")
+    if os.path.exists(done):
+        return root
+    for sub in ("Cameras", f"Rectified_raw/{DTU_SCAN}",
+                f"Depths_raw/{DTU_SCAN}", f"pseudo_depths/{DTU_SCAN}"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    # the views with images form the cluster; the others sit further up
+    slot = {v: k for k, v in enumerate(DTU_VIEWS)}
+    others = iter(range(10, 100))
+    c2ws = [rig_c2w(slot[v] if v in slot else next(others),
+                    3.0 + 0.02 * (v % 5)) for v in range(49)]
+    for vid, c2w in enumerate(c2ws):
+        c2w_mm = c2w.astype(np.float64)
+        c2w_mm[:3, 3] *= DTU_UNIT
+        write_cam(os.path.join(root, f"Cameras/{vid:08d}_cam.txt"),
+                  np.linalg.inv(c2w_mm), DTU_K, 425.0, 2.5)
+    write_pairs(os.path.join(root, "Cameras/pair.txt"),
+                np.stack([c[:3, 3] for c in c2ws]), DTU_VIEWS)
+    for vid in DTU_VIEWS:
+        img, mask, depth = render_view(c2ws[vid], DTU_K, (1200, 1600))
+        depth_mm = depth * DTU_UNIT
+        write_png(os.path.join(
+            root, f"Rectified_raw/{DTU_SCAN}/rect_{vid + 1:03d}_3_r5000.png"),
+            img)
+        d = os.path.join(root, f"Depths_raw/{DTU_SCAN}")
+        write_png(os.path.join(d, f"depth_visual_{vid:04d}.png"),
+                  (mask * 255).astype(np.uint8))
+        write_pfm(os.path.join(d, f"depth_map_{vid:04d}.pfm"), depth_mm)
+        np.save(os.path.join(root, f"pseudo_depths/{DTU_SCAN}/"
+                             f"{vid}_epoch0.npy"),
+                (depth_mm * PSEUDO_SCALE).astype(np.float32))
+    open(done, "w").close()
+    return root
+
+
+def write_bmvs_tree(root: str) -> str:
+    """A BlendedMVS-layout scene under ``root``: BMVS_VIEWS cameras
+    calibrated at 768x576, masked JPEGs and rendered depth maps (the
+    sphere, in its own units; background depth 0, below depth_min)."""
+    from PIL import Image
+
+    scene = os.path.join(root, BMVS_SCENE)
+    done = os.path.join(scene, "complete")
+    if os.path.exists(done):
+        return root
+    for sub in ("cams", "blended_images", "rendered_depth_maps"):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+    K = np.array([[700.0, 0.0, 384.0], [0.0, 700.0, 288.0], [0, 0, 1.0]])
+    c2ws = [rig_c2w(k, 3.0) for k in range(BMVS_VIEWS)]
+    for vid, c2w in enumerate(c2ws):
+        write_cam(os.path.join(scene, f"cams/{vid:08d}_cam.txt"),
+                  np.linalg.inv(c2w.astype(np.float64)), K, 1.5,
+                  3.0 / 192)
+        img, _, depth = render_view(c2w, K, (576, 768))
+        Image.fromarray(img).save(os.path.join(
+            scene, f"blended_images/{vid:08d}_masked.jpg"), quality=95)
+        write_pfm(os.path.join(scene, f"rendered_depth_maps/{vid:08d}.pfm"),
+                  depth)
+    write_pairs(os.path.join(scene, "cams/pair.txt"),
+                np.stack([c[:3, 3] for c in c2ws]), range(BMVS_VIEWS))
+    open(done, "w").close()
+    return root
+
+
+def depth_png_in_colour(path: str) -> bool:
+    """Whether the PNG at ``path`` is RGB with pixels whose channels
+    differ (a colour map, not grey)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        a = np.asarray(im)
+    return im.mode == "RGB" and bool((a[..., 0] != a[..., 2]).any())
+
+
+DTU_ARTIFACT = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
+
+
+def dtu_path(gens_main, dev) -> None:
+    """confs/dtu.yaml, dtu_finetune.yaml and bmvs.yaml through ``gens_main``
+    on DTU- and BlendedMVS-layout trees, with only the data paths and the
+    run length overridden."""
+    from gens_torch.config import DatasetConfig
+    from gens_torch.data.dtu import DTUDataset
+
+    t0 = time.perf_counter()
+    tree = write_dtu_tree(os.path.join(REPO, "build", "chip_smoke_dtu"))
+    btree = write_bmvs_tree(os.path.join(REPO, "build", "chip_smoke_bmvs"))
+    tree_s = time.perf_counter() - t0
+    data = [f"{ds}.{k}" for ds in ("train_dataset", "val_dataset")
+            for k in (f"data_dir={tree}", f'scene=["{DTU_SCAN}"]')]
+    dtu_train_path(gens_main, data, tree_s)
+    torch.cuda.empty_cache()
+    dtu_val_path(gens_main, data)
+    torch.cuda.empty_cache()
+    dtu_finetune_path(gens_main, tree)
+    torch.cuda.empty_cache()
+    raw = DTUDataset(DatasetConfig(
+        data_dir=tree, split=None, scene=(DTU_SCAN,), ref_view=(0,),
+        num_src_view=2, img_hw=(96, 128), n_rays=64, n_pseudo_pts=64),
+        "train", rng=np.random.RandomState(0))[0]
+    assert raw["pseudo_pts"].shape == (64, 3)
+    check_small_train(dev, raw, "dtu train step")
+    bmvs_val_path(gens_main, btree)
+    torch.cuda.empty_cache()
+
+
+def dtu_train_path(gens_main, data, tree_s: float) -> None:
+    """confs/dtu.yaml trains 3 steps (ref views 0-2), then ``--resume
+    auto`` trains epoch 1 from the first run's checkpoint with the
+    config's validation at its end: K1 25 a step, 2048 pseudo points in
+    every step's batch, finite losses, the train and train_avg records;
+    per step the wait on the prefetch queue and an item's decode time."""
+    from gens_torch.train import step as step_mod
+
+    exp = os.path.join(REPO, "build", "chip_smoke_dtu_train")
+    pseudo_rows = []
+    call = step_mod.TrainStep.__call__
+
+    def recording_call(self, inputs, *a, **k):
+        pts = inputs.get("pseudo_pts")
+        pseudo_rows.append(None if pts is None else int(pts.shape[0]))
+        return call(self, inputs, *a, **k)
+
+    step_mod.TrainStep.__call__ = recording_call
+    runs = []
+    try:
+        for resume, epochs in (([], 1), (["--resume", "auto"], 2)):
+            zero_counts()
+            t0 = time.perf_counter()
+            runner = gens_main(
+                ["--conf", os.path.join(REPO, "confs", "dtu.yaml"), "--mode",
+                 "train"] + resume + ["--set", f"base_exp_dir={exp}",
+                                      "train_dataset.ref_view=[0,1,2]",
+                                      f"train.epochs={epochs}"] + data)
+            runs.append((runner, time.perf_counter() - t0, launch_counts()))
+    finally:
+        step_mod.TrainStep.__call__ = call
+    (first, first_wall, first_counts), (second, second_wall, second_counts) \
+        = runs
+    cfg = first.cfg
+    assert cfg.train_dataset.dataset_name == "dtu"
+    assert tuple(cfg.train_dataset.img_hw) == (480, 640)
+    assert cfg.train_dataset.num_src_view == 4
+    assert cfg.model.volume.packed_bilerp == "pallas"
+    k1_run = 3 * 5 * len(cfg.model.volume.volume_dims)
+    zeros = {k: 0 for k in first_counts}
+    assert first_counts == {**zeros, "K1": k1_run}, first_counts
+    # the resumed epoch ends with confs/dtu.yaml's validation (val_freq 2)
+    assert second_counts == {**zeros, "K1": k1_run, "K3": 512}, \
+        second_counts
+    assert second.start_epoch == 1, second.start_epoch
+    assert [s["step"] for s in first.train_stats] == [1, 2, 3]
+    assert [s["step"] for s in second.train_stats] == [4, 5, 6]
+    assert pseudo_rows == [2048] * 6, pseudo_rows
+    steps = first.train_stats + second.train_stats
+    for st in steps:
+        bad = [k for k, v in st.items() if not np.isfinite(v)]
+        assert not bad, (st["step"], bad)
+    with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+        kinds = [json.loads(line)["mode"] for line in f]
+    assert kinds.count("train") == 6 and kinds.count("train_avg") == 2, kinds
+    print("dtu train path: " + json.dumps({
+        "tree_s": tree_s, "wall_s": [first_wall, second_wall],
+        "step_ms": [s["step_s"] * 1e3 for s in steps],
+        "data_wait_ms": [s["data_wait_s"] * 1e3 for s in steps],
+        "decode_ms": [s["decode_s"] * 1e3 for s in steps],
+        "k1_launches": [first_counts["K1"], second_counts["K1"]],
+        "resumed_at_epoch": second.start_epoch,
+        "val_in_training": {k: second.stats[0][k] for k in (
+            "psnr", "n_tris", "mesh_grid_s", "render_s")},
+        "losses": {k: v for k, v in steps[-1].items() if k not in (
+            "epoch", "step", "step_s", "data_wait_s", "decode_s")}}),
+        flush=True)
+
+
+def dtu_val_path(gens_main, data) -> None:
+    """``--mode val`` of confs/dtu.yaml on the trained artifact (scan24,
+    reference view 23): K3 512, a finite grid and render, a surface, the
+    depth PNGs in colour."""
+    exp = os.path.join(REPO, "build", "chip_smoke_dtu_val")
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = gens_main(["--conf", os.path.join(REPO, "confs", "dtu.yaml"),
+                        "--mode", "val", "--resume", DTU_ARTIFACT, "--set",
+                        f"base_exp_dir={exp}", "mesh_resolution=512"] + data)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    (st,) = runner.stats
+    assert counts == {**{k: 0 for k in counts}, "K3": 512}, counts
+    assert st["scene"] == DTU_SCAN and st["rays"] == 120 * 160, st
+    assert st["grid_finite"] and st["render_finite"] and np.isfinite(
+        st["psnr"])
+    # an inside margin of 0.14 on an H100 80GB HBM3 (PERF.md section 5)
+    assert st["n_tris"] > 0, "empty mesh of the DTU val scene"
+    for sub in ("val_render_depth", "val_sdf_depth"):
+        (name,) = os.listdir(os.path.join(exp, sub))
+        assert name.startswith(f"{DTU_SCAN}_view23_light3_epoch"), name
+        assert depth_png_in_colour(os.path.join(exp, sub, name)), sub
+    print("dtu val path: " + json.dumps({
+        "wall_s": wall, "k3_launches": counts["K3"],
+        "outside_margin": float(-runner.last_sdf_grid.min()),
+        **{k: st[k] for k in ("psnr", "n_tris", "build_scene_s",
+                              "mesh_grid_s", "isosurface_s", "render_s",
+                              "rays_per_s", "render_depth_loss",
+                              "sdf_depth_loss")}}), flush=True)
+
+
+def dtu_finetune_path(gens_main, tree: str) -> None:
+    """confs/dtu_finetune.yaml (scan24, view 23, 3 views at 1152x1600) on
+    the trained artifact under ``kernel2f``, 6 steps: K2 15, all in the
+    volume build, K3 512 at the validation, finite losses."""
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.ops import window_fwd as k2
+
+    exp = os.path.join(REPO, "build", "chip_smoke_dtu_ft")
+    build = {}
+    init_volumes = GenSModel.init_volumes
+
+    def counted_init_volumes(self, imgs, intrs, c2ws):
+        n0 = k2.bilerp_window_fwd.launches
+        out = init_volumes(self, imgs, intrs, c2ws)
+        build["k2"] = k2.bilerp_window_fwd.launches - n0
+        return out
+
+    GenSModel.init_volumes = counted_init_volumes
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        runner = gens_main([
+            "--conf", os.path.join(REPO, "confs", "dtu_finetune.yaml"),
+            "--mode", "finetune", "--resume", DTU_ARTIFACT, "--set",
+            f"base_exp_dir={exp}", f"finetune_dataset.data_dir={tree}",
+            "model.volume.packed_bilerp=pallas",
+            "model.volume.splat_impl=kernel2f", "train.epochs=6"])
+    finally:
+        GenSModel.init_volumes = init_volumes
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cfg = runner.cfg
+    assert tuple(cfg.finetune_dataset.img_hw) == (1152, 1600)
+    assert list(cfg.finetune_dataset.scene) == [DTU_SCAN]
+    assert counts == {**{k: 0 for k in counts}, "K2": 15, "K3": 512}, counts
+    assert build["k2"] == 15, build
+    steps = [s for s in runner.finetune_stats if "loss" in s]
+    (val,) = [s for s in runner.finetune_stats if "val_step" in s]
+    assert len(steps) == 6
+    for s in steps:
+        bad = [k for k, v in s.items() if not np.isfinite(v)]
+        assert not bad, (s["step"], bad)
+    assert val["grid_finite"] and val["render_finite"]
+    assert val["rays"] == 288 * 400, val["rays"]
+    print("dtu finetune path: " + json.dumps({
+        "wall_s": wall, "init_volumes_ms": runner.init_volumes_s * 1e3,
+        "step_ms": [s["step_s"] * 1e3 for s in steps],
+        "k2_launches": counts["K2"], "k3_launches": counts["K3"],
+        "val_psnr": val["psnr"], "val_n_tris": val["n_tris"],
+        "val_mesh_grid_s": val["mesh_grid_s"], "val_render_s": val["render_s"],
+        "losses": {k: v for k, v in steps[-1].items()
+                   if k not in ("step", "vid", "step_s")}}), flush=True)
+
+
+def bmvs_val_path(gens_main, btree: str) -> None:
+    """``--mode val`` of confs/bmvs.yaml (576x768) on the trained artifact,
+    reference view 0 of the BlendedMVS-layout scene: K3 512, a finite grid
+    and render, a surface."""
+    exp = os.path.join(REPO, "build", "chip_smoke_bmvs_val")
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = gens_main([
+        "--conf", os.path.join(REPO, "confs", "bmvs.yaml"), "--mode", "val",
+        "--resume", DTU_ARTIFACT, "--set", f"base_exp_dir={exp}",
+        f"val_dataset.data_dir={btree}", f'val_dataset.scene=["{BMVS_SCENE}"]',
+        "val_dataset.ref_view=[0]"])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    (st,) = runner.stats
+    assert tuple(runner.cfg.val_dataset.img_hw) == (576, 768)
+    assert counts == {**{k: 0 for k in counts},
+                      "K3": (runner.cfg.mesh_resolution // 64) ** 3}, counts
+    assert st["rays"] == 144 * 192 and st["grid_finite"] \
+        and st["render_finite"], st
+    assert st["n_tris"] > 0, "empty mesh of the BlendedMVS val scene"
+    print("bmvs val path: " + json.dumps({
+        "wall_s": wall, "k3_launches": counts["K3"],
+        "outside_margin": float(-runner.last_sdf_grid.min()),
+        **{k: st[k] for k in ("psnr", "n_tris", "mesh_grid_s", "render_s")}}),
+        flush=True)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 Usage:
     python -m gens_torch.main --conf confs/dtu.yaml [--mode train] \
-        [--resume CKPT]
+        [--resume CKPT | --resume auto]
     python -m gens_torch.main --conf confs/dtu.yaml --mode val --resume CKPT \
         [--mesh_resolution N] [--clean_mesh]
     python -m gens_torch.main --conf confs/dtu_finetune.yaml --mode finetune \
@@ -78,7 +78,10 @@ def main(argv=None) -> Runner:
         raise ValueError("--mode finetune needs a checkpoint (--resume)")
     cfg = config_from_args(args)
     runner = Runner(cfg, device)
-    runner.metrics = runner.run(resume=args.resume)
+    try:
+        runner.metrics = runner.run(resume=args.resume)
+    finally:
+        runner.close()
     print({k: round(v, 6) for k, v in runner.metrics.items()}, flush=True)
     return runner
 

@@ -2,17 +2,28 @@
 ``Runner.train``, ``Runner.validate``, ``validate_all``, ``Runner.finetune``
 and ``_finetune_validate`` in gens_tpu/runner.py).
 
+Datasets: ``get_dataset`` dispatches as the JAX one does (synthetic, the
+DTU and BlendedMVS readers and their finetune variants), and the readers
+draw from the runner's ``RandomState(seed)``, which also draws the epoch
+permutations.
+
 Training: the epoch loop over the train dataset in a seeded random order,
 the matching-feature resync every ``match_sync_every`` epochs, the cosine
 anneal ratio, ``use_match_features`` from fractional epoch 5, the loss and
 PSNR logged every ``log_freq`` epochs, checkpoints every ``save_freq`` and
-validation every ``val_freq`` epochs. One device; the JAX runner's prefetch
-thread, preemption guard and sharded loop are later slices.
+validation every ``val_freq`` epochs. One worker thread decodes item i+1
+into pinned memory while step i runs (``utils/prefetch.py``). ``--resume
+auto`` continues from the newest good checkpoint (``latest_checkpoint``);
+a SIGTERM writes ``preempt.ckpt`` at the next log point or epoch end and
+returns (``utils/preemption.py``); a non-finite loss writes
+``emergency.ckpt`` and raises. One device; the JAX runner's sharded loop
+is a later slice.
 
 Validation, per scene: build the scene, extract the mesh through K3, clean
 it when ``clean_mesh`` is set (``mesh/clean.py``: the views' masks, then the
 frustum first-hit consensus, before the scale transform), render the val ray
-grid in fixed-size chunks, save images, and compute PSNR and depth errors.
+grid in fixed-size chunks, save images (depth in magma over [0, 2.5]), and
+compute PSNR and depth errors.
 
 Finetune, per scene (the experiment directory is
 ``<base_exp_dir>/<scene>/view<ref_view>``): build the volumes once from all
@@ -20,8 +31,11 @@ views (or resume them from a finetune checkpoint), then take ``epochs``
 steps, each on a view drawn from a seeded permutation, with the loss logged
 every ``log_freq`` steps, a checkpoint every ``save_freq`` steps and
 validation (K3 mesh and chunked render of view 0) every ``val_freq`` steps
-and at the end. The runner's ``RandomState(seed)`` draws the permutations,
-the dataset's own the rays, as in the JAX loop.
+and at the end.
+
+``logs/metrics.jsonl`` under the experiment directory gets the JAX
+runner's records (train, train_avg, val, val_avg, finetune), and train and
+finetune runs copy the package to ``codes_recording/gens_torch``.
 
 The runner works on one explicit device. It sets float32 matmuls and
 convolutions to full precision (no TF32), as the JAX reference computes
@@ -31,9 +45,8 @@ them on the CPU.
 from __future__ import annotations
 
 import os
-import struct
+import shutil
 import time
-import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -41,35 +54,54 @@ import torch
 
 from gens_torch.config import Config
 from gens_torch.convert import load_checkpoint, load_params
+from gens_torch.data.image_io import magma, write_png
 from gens_torch.mesh.clean import clean_mesh
 from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.renderer import Scene
-from gens_torch.train.checkpoint import (load_finetune_checkpoint,
+from gens_torch.train.checkpoint import (latest_checkpoint,
+                                         load_finetune_checkpoint,
                                          save_checkpoint,
                                          save_finetune_checkpoint)
 from gens_torch.train.schedule import cos_anneal_ratio
 from gens_torch.train.step import (FinetuneStep, TrainStep,
                                    sync_match_features)
+from gens_torch.utils.meters import DictAverageMeter, MetricsLogger
+from gens_torch.utils.prefetch import prefetch_map
+from gens_torch.utils.preemption import PreemptionGuard
 
 
-def get_dataset(cfg, mode: str = "val"):
+def get_dataset(cfg, mode: str = "val",
+                rng: Optional[np.random.RandomState] = None):
     """The dataset named by a DatasetConfig in ``mode`` "train", "val" or
-    "finetune" (synthetic only so far; as in the JAX runner, the synthetic
-    scene has ``num_src_view + 1`` views in every mode)."""
+    "finetune": synthetic (``num_src_view + 1`` views in every mode, its
+    own seed); in finetune mode DTU or else BlendedMVS finetune; DTU; else
+    BlendedMVS. The readers draw from ``rng``."""
     name = cfg.dataset_name.lower().replace("dataset", "")
-    if name != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset_name!r} is not ported yet (synthetic "
-            "only); see ROADMAP.md")
-    from gens_torch.data.synthetic import SyntheticDataset
+    if name == "synthetic":
+        from gens_torch.data.synthetic import SyntheticDataset
 
-    return SyntheticDataset(
-        n_scenes=len(cfg.scene) if cfg.scene else 4,
-        n_views=cfg.num_src_view + 1, hw=tuple(cfg.img_hw),
-        n_rays=cfg.n_rays, val_res_level=cfg.val_res_level,
-        n_pseudo_pts=min(cfg.n_pseudo_pts, 256), mode=mode)
+        return SyntheticDataset(
+            n_scenes=len(cfg.scene) if cfg.scene else 4,
+            n_views=cfg.num_src_view + 1, hw=tuple(cfg.img_hw),
+            n_rays=cfg.n_rays, val_res_level=cfg.val_res_level,
+            n_pseudo_pts=min(cfg.n_pseudo_pts, 256), mode=mode)
+    if mode == "finetune":
+        if name in ("dtu", "dtufinetune"):
+            from gens_torch.data.dtu_finetune import DTUFinetuneDataset
+
+            return DTUFinetuneDataset(cfg, rng=rng)
+        from gens_torch.data.bmvs import BMVSFinetuneDataset
+
+        return BMVSFinetuneDataset(cfg, rng=rng)
+    if name == "dtu":
+        from gens_torch.data.dtu import DTUDataset
+
+        return DTUDataset(cfg, mode, rng=rng)
+    from gens_torch.data.bmvs import BMVSDataset
+
+    return BMVSDataset(cfg, mode, rng=rng)
 
 
 def subsample_to_val_grid(full: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -80,23 +112,11 @@ def subsample_to_val_grid(full: np.ndarray, h: int, w: int) -> np.ndarray:
     return full[ty[:, None], tx[None, :]]
 
 
-def _write_png(path: str, img: np.ndarray) -> None:
-    """Write an (H, W) or (H, W, 3) uint8 array as PNG (zlib only)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w = img.shape[:2]
-    color = 2 if img.ndim == 3 else 0
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR",
-                      struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+def _float_arrays(raw: Dict) -> Dict[str, torch.Tensor]:
+    """The float32 arrays of a dataset item as CPU tensors."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in raw.items()
+            if isinstance(v, np.ndarray) and v.dtype == np.float32}
 
 
 class Runner:
@@ -118,11 +138,25 @@ class Runner:
             self.exp_dir = os.path.join(self.exp_dir, fd.scene[0],
                                         f"view{fd.ref_view[0]}")
         os.makedirs(self.exp_dir, exist_ok=True)
+        self.logger = MetricsLogger(os.path.join(self.exp_dir, "logs"))
+        if cfg.mode in ("train", "finetune"):
+            self._backup_code()
         # seconds and rates of the last validate() call, per scene
         self.stats = []
         # per training / finetune step: step, seconds and metrics
         self.train_stats = []
         self.finetune_stats = []
+
+    def close(self) -> None:
+        self.logger.close()
+
+    def _backup_code(self) -> None:
+        """Copy the package into the experiment directory (once)."""
+        src = os.path.dirname(os.path.abspath(__file__))
+        dst = os.path.join(self.exp_dir, "codes_recording", "gens_torch")
+        if not os.path.exists(dst):
+            shutil.copytree(src, dst,
+                            ignore=shutil.ignore_patterns("__pycache__"))
 
     def run(self, resume: Optional[str] = None):
         if self.cfg.mode == "val":
@@ -133,10 +167,42 @@ class Runner:
             return self.finetune(resume)
         raise ValueError(f"unknown mode {self.cfg.mode!r}")
 
+    def _preempt_guard(self) -> PreemptionGuard:
+        """The SIGTERM guard of this runner, installed on first use;
+        ``train`` restores the previous handler when it returns."""
+        if not hasattr(self, "_preempt"):
+            self._preempt = PreemptionGuard().__enter__()
+        return self._preempt
+
+    def _preempt_save(self, epoch: int, step: int, step_fn: TrainStep,
+                      complete: bool = False) -> None:
+        """Write ``preempt.ckpt``. Mid-epoch it records epoch - 1, so that a
+        resumed run replays the interrupted epoch from its start (the
+        params keep its partial progress); at an epoch's end
+        (``complete``) the resumed run starts at epoch + 1."""
+        save_checkpoint(os.path.join(self.exp_dir, "checkpoints",
+                                     "preempt.ckpt"),
+                        epoch if complete else epoch - 1, step, self.model,
+                        step_fn.optimizer)
+        print(f"preemption checkpoint saved at epoch {epoch} (step {step}); "
+              "exiting", flush=True)
+
+    def _host_batch(self, dataset, idx: int
+                    ) -> Tuple[Dict[str, torch.Tensor], float]:
+        """Item ``idx``'s float32 arrays as CPU tensors, pinned when the
+        runner is on the card, and the seconds its decoding and this
+        took."""
+        t0 = time.perf_counter()
+        host = _float_arrays(dataset[idx])
+        if self.device.type == "cuda":
+            host = {k: v.pin_memory() for k, v in host.items()}
+        return host, time.perf_counter() - t0
+
     def train(self, resume: Optional[str] = None) -> Dict[str, float]:
         """The generalizable training loop; ``resume`` continues from a
-        checkpoint (params, optimizer state, epoch and step). Returns the
-        mean metrics of the last epoch."""
+        checkpoint (params, optimizer state, epoch and step), "auto" from
+        the newest in the experiment directory or from scratch when there
+        is none. Returns the mean metrics of the last epoch."""
         cfg, tc = self.cfg, self.cfg.train
         if cfg.parallel.data * cfg.parallel.view > 1:
             # the JAX runner takes parallel.data scenes a step, so its steps
@@ -145,63 +211,118 @@ class Runner:
                 f"parallel.data={cfg.parallel.data} and parallel.view="
                 f"{cfg.parallel.view}: multi-GPU runs are not ported; see "
                 "ROADMAP.md A3")
-        dataset = get_dataset(cfg.train_dataset, "train")
+        dataset = get_dataset(cfg.train_dataset, "train", self.rng)
         steps_per_epoch = len(dataset)
+        ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
+        if resume == "auto":
+            resume = latest_checkpoint(ckpt_dir)
         start_epoch, step, payload = 0, 0, None
         if resume:
             payload = load_params(self.model, resume)
             start_epoch = int(payload["epoch"]) + 1
             step = int(payload.get("step", 0))
+        self.start_epoch = start_epoch
         step_fn = TrainStep(self.model, cfg, steps_per_epoch, start_step=step)
         self.step_fn = step_fn
         if payload is not None and payload.get("opt_state") is not None:
             step_fn.optimizer.load_state_dict(payload["opt_state"])
-        log_every = max(1, int(tc.log_freq * steps_per_epoch))
-        ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
         means: Dict[str, float] = {}
-        for epoch in range(start_epoch, tc.epochs):
-            if epoch % cfg.model.match_sync_every == 0:
-                sync_match_features(self.model)
-            sums: Dict[str, float] = {}
-            for batch, idx in enumerate(self.rng.permutation(steps_per_epoch)):
-                inputs = self._tensors(dataset[int(idx)])
-                frac = epoch + batch / steps_per_epoch
-                self._sync()
+        preempt = self._preempt_guard()
+        try:
+            for epoch in range(start_epoch, tc.epochs):
+                if epoch % cfg.model.match_sync_every == 0:
+                    sync_match_features(self.model)
+                step, means, stopped = self._train_epoch(
+                    dataset, step_fn, epoch, step, preempt)
+                if stopped:
+                    return means
+                self.logger.log("train_avg", means, epoch)
+                print(f"[train] epoch {epoch} mean: " + ", ".join(
+                    f"{k} {v:.5f}" for k, v in means.items()), flush=True)
+                if (epoch + 1) % tc.save_freq == 0 or epoch + 1 >= tc.epochs:
+                    save_checkpoint(os.path.join(ckpt_dir,
+                                                 f"model_{epoch:03d}.ckpt"),
+                                    epoch, step, self.model,
+                                    step_fn.optimizer)
+                if (epoch + 1) % tc.val_freq == 0:
+                    self.model.eval()
+                    self.validate(epoch)
+                if preempt.requested:
+                    self._preempt_save(epoch, step, step_fn, complete=True)
+                    return means
+        finally:
+            preempt.__exit__(None, None, None)
+            del self._preempt
+        return means
+
+    def _train_epoch(self, dataset, step_fn: TrainStep, epoch: int, step: int,
+                     preempt: PreemptionGuard
+                     ) -> Tuple[int, Dict[str, float], bool]:
+        """One epoch in a seeded order, the next item decoded on the
+        prefetch thread while a step runs. Returns the step count, the
+        epoch's mean metrics and whether a preemption stopped it (after
+        writing ``preempt.ckpt`` at a log point)."""
+        n = len(dataset)
+        log_every = max(1, int(self.cfg.train.log_freq * n))
+        order = self.rng.permutation(n)
+        avg = DictAverageMeter()
+        t_epoch = time.perf_counter()
+        batches = prefetch_map(lambda i: self._host_batch(dataset, int(i)),
+                               list(order))
+        try:
+            for batch in range(n):
                 t0 = time.perf_counter()
-                metrics = step_fn(inputs, cos_anneal_ratio(frac, tc.anneal_end),
-                                  use_match_features=frac >= 5,
-                                  generator=self.generator)
-                # one device sync per step: every metric in one copy
-                scalars = dict(zip(metrics, torch.stack(
-                    list(metrics.values())).tolist()))
-                seconds = time.perf_counter() - t0
+                host, decode_s = next(batches)
+                data_wait_s = time.perf_counter() - t0
+                inputs = {k: v.to(self.device, non_blocking=True)
+                          for k, v in host.items()}
+                del host
+                scalars, seconds = self._train_step(step_fn, inputs,
+                                                    epoch + batch / n)
                 step += 1
                 if not np.isfinite(scalars["loss"]):
-                    save_checkpoint(os.path.join(ckpt_dir, "emergency.ckpt"),
+                    save_checkpoint(os.path.join(self.exp_dir, "checkpoints",
+                                                 "emergency.ckpt"),
                                     epoch, step, self.model,
                                     step_fn.optimizer)
                     raise FloatingPointError(
                         f"non-finite loss at epoch {epoch}: {scalars} -- "
                         "emergency checkpoint saved")
-                self.train_stats.append({"epoch": epoch, "step": step,
-                                         "step_s": seconds, **scalars})
-                for k, v in scalars.items():
-                    sums[k] = sums.get(k, 0.0) + v
+                self.train_stats.append({
+                    "epoch": epoch, "step": step, "step_s": seconds,
+                    "data_wait_s": data_wait_s, "decode_s": decode_s,
+                    **scalars})
+                avg.update(scalars)
                 if batch % log_every == 0:
                     print(f"[train] epoch {epoch} step {step}: loss "
                           f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "
-                          f"({seconds:.3f} s)", flush=True)
-            means = {k: v / steps_per_epoch for k, v in sums.items()}
-            print(f"[train] epoch {epoch} mean: " + ", ".join(
-                f"{k} {v:.5f}" for k, v in means.items()), flush=True)
-            if (epoch + 1) % tc.save_freq == 0 or epoch + 1 >= tc.epochs:
-                save_checkpoint(os.path.join(ckpt_dir,
-                                             f"model_{epoch:03d}.ckpt"),
-                                epoch, step, self.model, step_fn.optimizer)
-            if (epoch + 1) % tc.val_freq == 0:
-                self.model.eval()
-                self.validate(epoch)
-        return means
+                          f"({seconds:.3f} s, data wait {data_wait_s:.3f} s)",
+                          flush=True)
+                    self.logger.log("train", {
+                        **avg.avg_data,
+                        "sec_per_step": (time.perf_counter() - t_epoch)
+                        / (batch + 1)}, epoch * n + batch)
+                    if preempt.requested:
+                        self._preempt_save(epoch, step, step_fn)
+                        return step, avg.avg_data, True
+        finally:
+            batches.close()
+        return step, avg.avg_data, False
+
+    def _train_step(self, step_fn: TrainStep, inputs, frac: float
+                    ) -> Tuple[Dict[str, float], float]:
+        """One update at fractional epoch ``frac``; its metrics and
+        seconds."""
+        self._sync()
+        t0 = time.perf_counter()
+        metrics = step_fn(inputs, cos_anneal_ratio(frac,
+                                                   self.cfg.train.anneal_end),
+                          use_match_features=frac >= 5,
+                          generator=self.generator)
+        # one device sync per step: every metric in one copy
+        scalars = dict(zip(metrics, torch.stack(
+            list(metrics.values())).tolist()))
+        return scalars, time.perf_counter() - t0
 
     def validate_all(self, resume: Optional[str]) -> Dict[str, float]:
         if not resume:
@@ -219,7 +340,7 @@ class Runner:
         if not resume:
             raise ValueError("finetune needs a checkpoint (--resume)")
         cfg, tc = self.cfg, self.cfg.train
-        dataset = get_dataset(cfg.finetune_dataset, "finetune")
+        dataset = get_dataset(cfg.finetune_dataset, "finetune", self.rng)
         payload = load_checkpoint(resume)
         self.init_volumes_s = None
         if "volumes" in payload["params"]:
@@ -239,7 +360,7 @@ class Runner:
         step_fn = FinetuneStep(self.model, cfg, volumes, masks, features)
         self.ft_step = step_fn
         ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
-        sums: Dict[str, float] = {}
+        avg = DictAverageMeter()
         perm = self.rng.permutation(dataset.num_views)
         for step in range(tc.epochs):
             vid = int(perm[step % len(perm)])
@@ -256,14 +377,14 @@ class Runner:
             seconds = time.perf_counter() - t0
             self.finetune_stats.append({"step": step, "vid": vid,
                                         "step_s": seconds, **scalars})
-            for k, v in scalars.items():
-                sums[k] = sums.get(k, 0.0) + v
+            avg.update(scalars)
             if (step + 1) % len(perm) == 0:
                 perm = self.rng.permutation(dataset.num_views)
             if (step + 1) % max(1, int(tc.log_freq)) == 0:
                 print(f"[finetune] step {step} view {vid}: loss "
                       f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "
                       f"({seconds:.3f} s)", flush=True)
+                self.logger.log("finetune", scalars, step)
             last = step + 1 >= tc.epochs
             if (step + 1) % tc.save_freq == 0 or last:
                 save_finetune_checkpoint(
@@ -272,7 +393,7 @@ class Runner:
                     step_fn.features)
             if (step + 1) % tc.val_freq == 0 or last:
                 self._finetune_validate(step_fn, dataset, step)
-        return {k: v / max(tc.epochs, 1) for k, v in sums.items()}
+        return avg.avg_data
 
     @torch.no_grad()
     def _finetune_validate(self, step_fn: FinetuneStep, dataset, step: int
@@ -298,9 +419,7 @@ class Runner:
             torch.cuda.synchronize(self.device)
 
     def _tensors(self, raw: Dict) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in raw.items()
-                if isinstance(v, np.ndarray) and v.dtype == np.float32}
+        return {k: v.to(self.device) for k, v in _float_arrays(raw).items()}
 
     def render_chunked(self, scene: Scene, inputs, chunk: int = 512
                        ) -> Dict[str, np.ndarray]:
@@ -331,9 +450,9 @@ class Runner:
         seconds and counts in ``self.stats``, the last scene and its SDF
         grid in ``last_scene`` / ``last_sdf_grid``; returns mean metrics."""
         cfg = self.cfg
-        dataset = get_dataset(cfg.val_dataset)
+        dataset = get_dataset(cfg.val_dataset, "val", self.rng)
         self.stats = []
-        sums: Dict[str, float] = {}
+        avg = DictAverageMeter()
         for idx in range(len(dataset)):
             raw = dataset[idx]
             inputs = self._tensors(raw)
@@ -360,9 +479,11 @@ class Runner:
                 scalars[name + "_loss"] = float(err / (dmask.sum() + 1e-8))
             st.update(scalars)
             self.stats.append(st)
-            for k, v in scalars.items():
-                sums[k] = sums.get(k, 0.0) + v
-        return {k: v / max(len(dataset), 1) for k, v in sums.items()}
+            avg.update(scalars)
+            self.logger.log("val", scalars, epoch * 1000 + idx)
+        means = avg.avg_data
+        self.logger.log("val_avg", means, epoch)
+        return means
 
     def _mesh_and_render(self, scene: Scene, raw: Dict, inputs, name: str,
                          tag, clean: bool = False
@@ -424,13 +545,12 @@ class Runner:
         rot = np.linalg.inv(np.asarray(raw["c2ws"])[0, :3, :3])
         normal = rend["normal"].reshape(-1, 3) @ rot.T
         normal_img = (normal.reshape(h, w, 3) * 128 + 128).clip(0, 255)
-        images = [("val_img", out_img), ("val_normal", normal_img)]
-        # depth as grayscale over [0, 2.5] (the JAX runner colour-maps it)
+        images = [("val_img", out_img.astype(np.uint8)),
+                  ("val_normal", normal_img.astype(np.uint8))]
         for sub in ("render_depth", "sdf_depth"):
-            d = rend[sub].reshape(h, w)
-            images.append(("val_" + sub, (d / 2.5 * 255).clip(0, 255)))
+            images.append(("val_" + sub, magma(rend[sub].reshape(h, w),
+                                               0.0, 2.5)))
         for sub, arr in images:
             d = os.path.join(self.exp_dir, sub)
             os.makedirs(d, exist_ok=True)
-            _write_png(os.path.join(d, f"{name}_epoch{tag}.png"),
-                       arr.astype(np.uint8))
+            write_png(os.path.join(d, f"{name}_epoch{tag}.png"), arr)

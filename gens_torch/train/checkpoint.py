@@ -12,13 +12,15 @@ params}`` with the step in ``epoch`` and ``params`` in the finetune format
 (``convert.finetune_params_to_jax``); like the JAX one it holds no
 optimizer state. Only load checkpoints this project wrote: unpickling runs
 code.
+
+:func:`latest_checkpoint` picks what ``--resume auto`` continues from.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -86,3 +88,18 @@ def load_finetune_checkpoint(model: torch.nn.Module, source
         raise KeyError(f"finetune checkpoint does not match the model: "
                        f"missing {missing}, unexpected {unexpected}")
     return payload, arrays
+
+
+def latest_checkpoint(ckpt_dir: str,
+                      exclude: tuple = ("emergency.ckpt",)) -> Optional[str]:
+    """The newest ``*.ckpt`` in ``ckpt_dir`` by mtime, the name breaking
+    ties; None when there is none. Epoch and preemption checkpoints
+    interleave, so the names' order would rank a stale ``preempt.ckpt``
+    above a newer ``model_NNN.ckpt``. ``emergency.ckpt`` (the params that
+    produced a non-finite loss) is skipped: resuming it would fail
+    again."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    ckpts = [os.path.join(ckpt_dir, p) for p in os.listdir(ckpt_dir)
+             if p.endswith(".ckpt") and p not in exclude]
+    return max(ckpts, key=lambda p: (os.path.getmtime(p), p), default=None)
