@@ -4,6 +4,9 @@ on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
+(``--rank-main`` and ``--rank-parity`` run one rank of the parallel phase;
+the script starts them itself.)
+
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K1 (gens_torch/csrc/splat.cu),
    K2 (gens_torch/csrc/window_fwd.cu) and P1-P3
@@ -90,7 +93,22 @@ on one NVIDIA GPU.
    volume build; K3 512 at its validation); a small DTU training step GPU
    against CPU; confs/bmvs.yaml ``--mode val`` (K3 512). Counters zeroed
    just before and read just after each run.
-11. Prints the card line, the kernels JSON line and, last, the ok line.
+11. Several ranks, on the DTU-layout tree: the one-process step at
+   confs/dtu.yaml's widths (f32 dtypes, as the GPU-vs-CPU checks; K1 in
+   the backward) from a seeded init on two items with fixed draws; a
+   one-rank NCCL group running the sharded step's collectives (its view
+   group the world) against it; then, when the card's compute mode lets
+   two processes share it, two gloo ranks on cuda:0: the sharded step
+   under view=2 (K1 15 a rank) and data=2 (K1 25) against it (loss 1e-3
+   relative, gradients 2e-2 per module); ``gens_torch.main --mode train``
+   of confs/dtu.yaml for 3 steps under parallel.view=2 and under
+   parallel.data=2 (counters zeroed and read in each rank; per-rank step
+   ms, data wait, K1 a step, peak memory); ``--mode val`` of two DTU
+   items on two ranks (K3 512 on each) against one process (merged
+   metrics within 1e-3). Two ranks on one card time-slice it: their step
+   times are no scaling measurement. Every group of ranks has a timeout,
+   and a failed rank fails the script.
+12. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -299,6 +317,10 @@ def main() -> int:
 
     # -- the DTU and BlendedMVS readers, through the entry points ------------
     dtu_path(gens_main, dev)
+
+    # -- several ranks, through the entry point ----------------------------
+    parallel_path(gens_main, dev,
+                  os.path.join(REPO, "build", "chip_smoke_dtu"))
 
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
@@ -1613,5 +1635,378 @@ def bmvs_val_path(gens_main, btree: str) -> None:
         flush=True)
 
 
+# -- the parallel path --------------------------------------------------------
+
+# each spawned group of ranks: seconds before it is killed and the script
+# fails
+RANKS_TIMEOUT = 300
+# the 2-rank val against one process: the per-scene metrics are the same
+# computation on the same card; the merge sums them in another order
+VAL_MERGE_RTOL = 1e-3
+PARALLEL_DIR = os.path.join(REPO, "build", "chip_smoke_parallel")
+
+
+def run_ranks(argvs, name: str, env_extra=None) -> list:
+    """``python3 chip_smoke.py <argv>`` once for each argv, as ranks 0..n-1
+    of one group (RANK, WORLD_SIZE, LOCAL_RANK 0, MASTER_ADDR/PORT), output
+    under PARALLEL_DIR. A rank that fails or outlasts RANKS_TIMEOUT stops
+    every rank and fails the script. Returns each rank's JSON result and
+    the group's wall seconds."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for r, argv in enumerate(argvs):
+        out = os.path.join(PARALLEL_DIR, f"{name}_rank{r}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(len(argvs)),
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), **(env_extra or {}))
+        log = open(os.path.join(PARALLEL_DIR, f"{name}_rank{r}.log"), "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__)] + argv + [out],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+        outs.append(out)
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > RANKS_TIMEOUT:
+                raise RuntimeError(f"{name}: over {RANKS_TIMEOUT} s")
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"{name}: rank(s) {failed} failed")
+    except RuntimeError:
+        for r in range(len(procs)):
+            with open(os.path.join(PARALLEL_DIR, f"{name}_rank{r}.log"),
+                      errors="replace") as f:
+                print(f"-- {name} rank {r}:\n" + f.read()[-4000:],
+                      flush=True)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results, wall
+
+
+def rank_main(argv, out: str) -> None:
+    """A rank of a parallel run: ``gens_main(argv)`` with the counts zeroed
+    just before and read just after; its launches, step stats, val stats,
+    metrics and peak memory into ``out``."""
+    from gens_torch.main import main as gens_main
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = gens_main(argv)
+    wall = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump({"wall_s": wall, "counts": launch_counts(),
+                   "train_stats": getattr(runner, "train_stats", []),
+                   "val_stats": [{k: v for k, v in st.items()
+                                  if not isinstance(v, str)}
+                                 for st in runner.stats],
+                   "metrics": runner.metrics,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+                  f)
+
+
+# the parity check's dtypes: f32 where confs/dtu.yaml has bf16, as the
+# GPU-vs-CPU checks (the widths, the K1 route and the data stay the yaml's).
+# In bf16 the U-Net amplifies any f32 difference of its input, K1's atomics
+# order included: one-process steps against each other differ by ~2% in
+# the reg net's gradient (PERF.md section 6)
+PARITY_F32 = ["model.volume.dtype=float32",
+              "model.volume.splat_mm_dtype=float32",
+              "model.reg_network.dtype=float32",
+              "model.sdf_network.volume_dtype=float32",
+              "model.sdf_network.mlp_dtype=float32",
+              "model.color_network.packed_dtype=float32",
+              "model.color_network.mlp_dtype=float32"]
+
+
+def parity_config(tree: str, f32: bool = True):
+    from gens_torch.config import load_config
+
+    return load_config(os.path.join(REPO, "confs", "dtu.yaml"), [
+        f"train_dataset.data_dir={tree}",
+        f'train_dataset.scene=["{DTU_SCAN}"]',
+        "train_dataset.ref_view=[0,1]"] + (PARITY_F32 if f32 else []))
+
+
+def rank_parity(spec_path: str, out: str) -> None:
+    """A rank of the parity check: for each (name, data, view) of the spec,
+    one ShardedTrainStep at confs/dtu.yaml's width from the saved init on
+    the saved batch and draws of its data row; metrics, gradients (saved
+    beside ``out``) and K1's launches. Backend "nccl" runs a one-rank
+    world whose view group is the world, so every collective of the step
+    runs."""
+    import torch.distributed as dist
+
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.parallel.distributed import RankLayout, make_layout
+    from gens_torch.parallel.sharded import ShardedTrainStep, shard
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        spec["backend"], world_size=world, rank=rank,
+        init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}")
+    data = torch.load(spec["batch"])
+    cfg = parity_config(spec["tree"])
+    result = {}
+    for name, n_data, n_view in spec["cases"]:
+        if spec["backend"] == "nccl":
+            layout = RankLayout(1, 1, 0, view_group=dist.group.WORLD)
+        else:
+            layout = make_layout(n_data, n_view)
+        model = GenSModel(cfg.model).to(dev)
+        model.load_state_dict(data["init"])
+        step = ShardedTrainStep(model, cfg, 1, layout)
+        row, col = layout.data_row, layout.view_col
+        inputs = {k: v.to(dev) for k, v in data["items"][row].items()}
+        zero_counts()
+        metrics = step(inputs, 0.5,
+                       perturb_noise=shard(data["noise"][row], n_view, col),
+                       sparse_pts=shard(data["sparse"][row], n_view, col))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        if rank == 0:
+            torch.save(grads, out + f".{name}.grads.pt")
+        result[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                        "counts": counts}
+        del model, step, inputs, grads
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def one_process_step(cfg, init, item, noise, sparse, dev) -> dict:
+    """One TrainStep from ``init`` on ``item`` with the given draws: its
+    loss and gradients (on the host)."""
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.train.step import TrainStep
+
+    model = GenSModel(cfg.model).to(dev)
+    model.load_state_dict(init)
+    metrics = TrainStep(model, cfg, 1)(
+        {k: v.to(dev) for k, v in item.items()}, 0.5, perturb_noise=noise,
+        sparse_pts=sparse)
+    out = {"loss": float(metrics["loss"]),
+           "grads": {k: p.grad.cpu() for k, p in model.named_parameters()
+                     if p.grad is not None}}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_references(tree: str, dev):
+    """The one-process step at confs/dtu.yaml's widths (f32) from a seeded
+    init on two DTU items (reference views 0 and 1), with fixed
+    perturbation and sparse points; saves the init, the items (with the
+    sharded runner's batch schema) and the draws for the ranks. Returns
+    the saved file, each item's loss and gradients, and the run-to-run
+    noise: item 0's step again, in f32 and in the yaml's bf16."""
+    from gens_torch.data.dtu import DTUDataset
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.runner import _float_arrays, materialize_schema
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = parity_config(tree)
+    dataset = DTUDataset(cfg.train_dataset, "train",
+                         rng=np.random.RandomState(0))
+    items = [_float_arrays(materialize_schema(
+        dataset[i], True, cfg.train_dataset.n_pseudo_pts)) for i in (0, 1)]
+    g = torch.Generator().manual_seed(5)
+    n_rays = items[0]["rays_o"].shape[0]
+    noise = [torch.rand((n_rays, 1), generator=g) - 0.5 for _ in items]
+    sparse = [torch.rand((cfg.model.render.n_sparse_pts, 3), generator=g)
+              * 2 - 1 for _ in items]
+    torch.manual_seed(cfg.train.seed)
+    init = GenSModel(cfg.model).state_dict()
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    batch = os.path.join(PARALLEL_DIR, "parity_batch.pt")
+    torch.save({"init": init, "items": items, "noise": noise,
+                "sparse": sparse}, batch)
+    refs = [one_process_step(cfg, init, item, nz, sp, dev)
+            for item, nz, sp in zip(items, noise, sparse)]
+    repeat = {"f32": grad_errors(refs[0], one_process_step(
+        cfg, init, items[0], noise[0], sparse[0], dev))}
+    bf16 = parity_config(tree, f32=False)
+    twice = [one_process_step(bf16, init, items[0], noise[0], sparse[0], dev)
+             for _ in range(2)]
+    repeat["bf16"] = grad_errors(*twice)
+    return batch, refs, repeat
+
+
+def grad_errors(ref: dict, got: dict):
+    """(loss relative error, per-module gradient relative norm errors) of
+    ``got`` against ``ref``, each {"loss", "grads"}."""
+    errs = {}
+    for top in ("feature", "reg", "sdf", "blending", "variance"):
+        keys = [k for k in ref["grads"] if k.split(".")[0] == top]
+        a = torch.cat([ref["grads"][k].reshape(-1) for k in keys])
+        b = torch.cat([got["grads"][k].reshape(-1) for k in keys])
+        errs[top] = float((a - b).norm() / a.norm())
+    return abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), errs
+
+
+def rank_step(result: dict, name: str, out: str) -> dict:
+    """A parity rank's {"loss", "grads"} for case ``name``."""
+    return {"loss": result[name]["metrics"]["loss"],
+            "grads": torch.load(out + f".{name}.grads.pt")}
+
+
+def parallel_path(gens_main, dev, tree: str) -> None:
+    """confs/dtu.yaml on two ranks through ``gens_torch.main`` (gloo, both
+    on cuda:0, which they time-slice), under parallel.view=2 (5 views
+    padded to 6: K1 15 a step on each rank) and parallel.data=2 (K1 25);
+    the 2-rank step against the one-process step at that width on a fixed
+    batch and draws (view=2 on one item, data=2 on two); a one-rank NCCL
+    group running the step's collectives; and a 2-rank ``--mode val`` of
+    two DTU items against one process."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"parallel path: compute mode {mode}; gloo on CUDA tensors "
+          f"(all_reduce, broadcast) with torch {torch.__version__}; two "
+          "ranks on one card time-slice it: their step times are no "
+          "scaling measurement", flush=True)
+    shared = mode.splitlines()[0] == "Default"
+    t_phase = time.perf_counter()
+    data = [f"{ds}.{k}" for ds in ("train_dataset", "val_dataset")
+            for k in (f"data_dir={tree}", f'scene=["{DTU_SCAN}"]')]
+    conf = ["--conf", os.path.join(REPO, "confs", "dtu.yaml")]
+
+    batch, refs, repeat = parity_references(tree, dev)
+    print("parallel one-process repeat (run-to-run noise of the reference "
+          "step): " + json.dumps(repeat), flush=True)
+    mean = {"loss": (refs[0]["loss"] + refs[1]["loss"]) / 2,
+            "grads": {k: (refs[0]["grads"][k] + refs[1]["grads"][k]) / 2
+                      for k in refs[0]["grads"]}}
+
+    def parity(name, backend, cases, world):
+        spec = os.path.join(PARALLEL_DIR, f"{name}.json")
+        with open(spec, "w") as f:
+            json.dump({"backend": backend, "cases": cases, "batch": batch,
+                       "tree": tree}, f)
+        return run_ranks([["--rank-parity", spec]] * world, name)
+
+    # one rank, NCCL: the sharded step's collectives on the card
+    (nccl,), nccl_wall = parity("nccl1", "nccl", [["nccl", 1, 1]], 1)
+    rel, errs = grad_errors(refs[0], rank_step(
+        nccl, "nccl", os.path.join(PARALLEL_DIR, "nccl1_rank0.json")))
+    print("parallel nccl one rank vs one process: " + json.dumps({
+        "loss_rel_err": rel, "grad_rel_err": errs, "wall_s": nccl_wall,
+        "k1_launches": nccl["nccl"]["counts"]["K1"]}), flush=True)
+    assert rel <= TRAIN_LOSS_RTOL and max(errs.values()) <= TRAIN_GRAD_TOL
+    assert nccl["nccl"]["counts"]["K1"] == 25
+
+    if not shared:
+        print(f"parallel path: the two-rank checks cannot run: compute mode "
+              f"{mode} lets one process hold the card", flush=True)
+        return
+
+    # the 2-rank step against the one-process step, view=2 then data=2
+    ranks, wall = parity("parity2", "gloo", [["view2", 1, 2],
+                                             ["data2", 2, 1]], 2)
+    for name, ref, k1 in (("view2", refs[0], 15), ("data2", mean, 25)):
+        rel, errs = grad_errors(ref, rank_step(
+            ranks[0], name, os.path.join(PARALLEL_DIR, "parity2_rank0.json")))
+        assert ranks[0][name]["metrics"] == ranks[1][name]["metrics"], name
+        print(f"parallel {name} two ranks vs one process: " + json.dumps({
+            "loss_rel_err": rel, "grad_rel_err": errs,
+            "k1_launches": [r[name]["counts"]["K1"] for r in ranks]}),
+            flush=True)
+        assert rel <= TRAIN_LOSS_RTOL, (name, rel)
+        assert max(errs.values()) <= TRAIN_GRAD_TOL, (name, errs)
+        assert [r[name]["counts"]["K1"] for r in ranks] == [k1, k1], name
+
+    # training through the entry point, 3 steps a run
+    for axis, views, k1 in (("view", "[0,1,2]", 15),
+                            ("data", "[0,1,2,3,4,5]", 25)):
+        exp = os.path.join(REPO, "build", f"chip_smoke_parallel_{axis}")
+        argv = conf + ["--mode", "train", "--device", "cuda:0",
+                       "--dist_backend", "gloo", "--set",
+                       f"base_exp_dir={exp}", f"parallel.{axis}=2",
+                       f"train_dataset.ref_view={views}",
+                       "train.epochs=1"] + data
+        ranks, wall = run_ranks([["--rank-main"] + argv + ["--"]] * 2,
+                                f"train_{axis}2")
+        zeros = {k: 0 for k in ranks[0]["counts"]}
+        for r in ranks:
+            assert len(r["train_stats"]) == 3, len(r["train_stats"])
+            assert r["counts"] == {**zeros, "K1": 3 * k1}, r["counts"]
+            for st in r["train_stats"]:
+                bad = [k for k, v in st.items() if not np.isfinite(v)]
+                assert not bad, (st["step"], bad)
+        assert os.path.exists(os.path.join(exp, "checkpoints",
+                                           "model_000.ckpt"))
+        print(f"parallel train {axis}=2: " + json.dumps({
+            "wall_s": wall,
+            "step_ms": [[s["step_s"] * 1e3 for s in r["train_stats"]]
+                        for r in ranks],
+            "data_wait_ms": [[s["data_wait_s"] * 1e3
+                              for s in r["train_stats"]] for r in ranks],
+            "k1_launches_per_step": [r["counts"]["K1"] / 3 for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+            "loss": ranks[0]["train_stats"][-1]["loss"]}), flush=True)
+
+    # validation of two DTU items over two ranks, against one process
+    val = conf + ["--mode", "val", "--resume", DTU_ARTIFACT, "--set",
+                  "val_dataset.ref_view=[23,0]"] + data
+    exp = os.path.join(REPO, "build", "chip_smoke_parallel_val")
+    ranks, wall = run_ranks(
+        [["--rank-main"] + val[:-len(data)] + [
+            f"base_exp_dir={exp}", "mesh_resolution=512"] + data
+          + ["--device", "cuda:0", "--dist_backend", "gloo", "--"]] * 2,
+        "val2")
+    one = gens_main(val + [f"base_exp_dir={exp}_one", "mesh_resolution=64"])
+    assert len(one.stats) == 2
+    zeros = {k: 0 for k in ranks[0]["counts"]}
+    for r in ranks:
+        assert r["counts"] == {**zeros, "K3": 512}, r["counts"]
+        assert len(r["val_stats"]) == 1
+        for k, v in one.metrics.items():
+            assert abs(r["metrics"][k] - v) <= VAL_MERGE_RTOL * abs(v), (k, v)
+    print("parallel val two ranks: " + json.dumps({
+        "wall_s": wall, "k3_launches": [r["counts"]["K3"] for r in ranks],
+        "merged": ranks[0]["metrics"], "one_process": one.metrics,
+        "per_rank_psnr": [r["val_stats"][0]["psnr"] for r in ranks],
+        "phase_s": time.perf_counter() - t_phase}), flush=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank-main"]:
+        # a rank of a parallel run: --rank-main <gens argv...> -- <out>
+        sys.path.insert(0, REPO)
+        sep = sys.argv.index("--")
+        rank_main(sys.argv[2:sep], sys.argv[sep + 1])
+    elif sys.argv[1:2] == ["--rank-parity"]:
+        sys.path.insert(0, REPO)
+        rank_parity(sys.argv[2], sys.argv[3])
+    else:
+        sys.exit(main())

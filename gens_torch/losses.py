@@ -1,8 +1,12 @@
 """Training losses (counterpart of gens_tpu/losses.py).
 
-Every masked reduction is a (numerator, denominator) pair divided once, as
-in the JAX function, so a later data-parallel slice can all-reduce the
-pairs and reproduce the one-device loss exactly.
+Every reduction is a (numerator, denominator) pair divided once, as in the
+JAX function. With a view ``group`` (the ray and point shards of one scene)
+both are summed over it before the divide, so every rank's value is the
+one-device loss; the numerator's gradient stays this rank's own share
+(``share_sum``), and the shares' parameter gradients are summed after the
+backward. TV, computed from the volumes every rank holds, counts once per
+group: each rank carries 1/V of it.
 """
 
 from __future__ import annotations
@@ -10,9 +14,11 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from gens_torch.config import LossConfig
 from gens_torch.ops.interp import safe_norm
+from gens_torch.parallel.collectives import share_sum
 
 
 def compute_lncc(ref_gray: torch.Tensor, src_grays: torch.Tensor
@@ -44,54 +50,63 @@ def compute_lncc(ref_gray: torch.Tensor, src_grays: torch.Tensor
     return best.mean(dim=1, keepdim=True)
 
 
-def _ratio(num: torch.Tensor, den, eps: float) -> torch.Tensor:
+def _ratio(num: torch.Tensor, den, eps: float, group=None) -> torch.Tensor:
+    if group is not None:
+        num = share_sum(num, group)
+        den = share_sum(torch.as_tensor(den, dtype=num.dtype,
+                                        device=num.device), group)
     return num / (den + eps)
 
 
-def compute_losses(preds: Dict, targets: Dict, cfg: LossConfig) -> Dict:
+def compute_losses(preds: Dict, targets: Dict, cfg: LossConfig,
+                   group=None) -> Dict:
     """Weighted loss aggregation. ``preds`` from the renderer, ``targets``
-    the batch. Returns every term and their weighted sum ``loss``."""
+    the batch, both this rank's shard under a view ``group``. Returns every
+    term and their weighted sum ``loss``."""
     valid_mask = preds["valid_mask"].float()  # (R, 1)
 
     # masked L1; the normalizer counts valid rays, the rgb channel sum stays
     # in the numerator
     color_err = (preds["color_fine"] - targets["color"]).abs()
     color_loss = _ratio(torch.sum(color_err * valid_mask), valid_mask.sum(),
-                        1e-5)
+                        1e-5, group)
 
     relax = preds["relax_inside_sphere"]
     eikonal_loss = _ratio(torch.sum(relax * preds["grad_sq_err"]),
-                          relax.sum(), 1e-5)
+                          relax.sum(), 1e-5, group)
 
     sp = torch.exp(-preds["sparse_sdf"].abs() * cfg.sparse_scale_factor)
-    sparse_loss = sp.sum() / sp.numel()
+    sparse_loss = _ratio(sp.sum(), sp.numel(), 0.0, group)
 
     sm = safe_norm(preds["smooth_sur"], dim=-1)
-    smooth_loss = sm.sum() / sm.numel()
+    smooth_loss = _ratio(sm.sum(), sm.numel(), 0.0, group)
 
     tv_loss = preds["tv_reg"]
+    if group is not None:
+        tv_loss = share_sum(tv_loss / dist.get_world_size(group), group)
 
     ncc = compute_lncc(preds["ref_gray_val"], preds["sampled_gray_val"])
     ncc_mask = valid_mask * preds["mid_inside_sphere"]
-    mfc_loss = 0.5 * _ratio(torch.sum(ncc * ncc_mask), ncc_mask.sum(), 1e-8)
+    mfc_loss = 0.5 * _ratio(torch.sum(ncc * ncc_mask), ncc_mask.sum(), 1e-8,
+                            group)
 
     zero = torch.zeros((), dtype=color_loss.dtype, device=color_loss.device)
     pseudo_sdf_loss = pseudo_depth_loss = depth_loss = zero
     if "pseudo_sdf" in preds:
         ps = preds["pseudo_sdf"].abs()
-        pseudo_sdf_loss = ps.sum() / ps.numel()
+        pseudo_sdf_loss = _ratio(ps.sum(), ps.numel(), 0.0, group)
     if "pseudo_depth" in targets:
         pd = targets["pseudo_depth"]
         pd_mask = (pd > 0).float()
         pseudo_depth_loss = _ratio(
             torch.sum((preds["render_depth"] - pd).abs() * pd_mask),
-            pd_mask.sum(), 1e-8)
+            pd_mask.sum(), 1e-8, group)
     if "depth" in targets:
         d = targets["depth"]
         d_mask = (d > 0).float()
         depth_loss = _ratio(
             torch.sum((preds["render_depth"] - d).abs() * d_mask),
-            d_mask.sum(), 1e-8)
+            d_mask.sum(), 1e-8, group)
 
     loss = (color_loss * cfg.color_weight
             + eikonal_loss * cfg.igr_weight

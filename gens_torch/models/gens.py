@@ -3,6 +3,12 @@ modules, builds a ``Scene`` for the generalizable regime -- feature net ->
 cross-view volume aggregation -> 3D U-Net -- and runs the training forward
 (build the scene under autograd, render the ray batch, pseudo-point SDF).
 
+Under the ``view`` axis (``parallel/sharded.py``) a rank builds the scene
+from its own views: their features feed the aggregation, whose sums are
+summed over the view group, and the features, images and cameras of all
+ranks are gathered for the blending and the MFC warp, cut to the real
+views.
+
 In the finetune regime the volumes are built once from all views
 (:meth:`GenSModel.init_volumes`) and become parameters of their own; the
 masks and features stay frozen, and :meth:`GenSModel.forward_finetune`
@@ -30,6 +36,7 @@ from gens_torch.models.renderer import Renderer, Scene
 from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.models.volume import agg_mean_var, voxel_grid
 from gens_torch.ops.interp import combine_mask_cascade
+from gens_torch.parallel.collectives import all_gather_views
 
 
 class GenSModel(nn.Module):
@@ -73,23 +80,46 @@ class GenSModel(nn.Module):
         return self.feature(imgs)
 
     def build_volumes(self, features: Sequence[torch.Tensor],
-                      intrs: torch.Tensor, c2ws: torch.Tensor
+                      intrs: torch.Tensor, c2ws: torch.Tensor,
+                      view_valid: Optional[torch.Tensor] = None, group=None
                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The raw cascade through ``agg_mean_var`` (``view_valid`` and the
+        view ``group`` passed on), then the U-Net."""
         v = self.cfg.volume
         raw_vols, mask_vols = agg_mean_var(
             features, intrs, c2ws, v.volume_dims,
             min_vis_view=v.min_vis_view,
             out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
             packed_bilerp=v.packed_bilerp, splat_mm_dtype=v.splat_mm_dtype,
-            splat_impl=v.splat_impl)
+            splat_impl=v.splat_impl, view_valid=view_valid, group=group)
         return self.reg(raw_vols), mask_vols
 
     def build_scene(self, imgs: torch.Tensor, intrs: torch.Tensor,
-                    c2ws: torch.Tensor) -> Scene:
-        """imgs (V, H, W, 3), intrs (V, 3, 3), c2ws (V, 4, 4) -> Scene."""
+                    c2ws: torch.Tensor,
+                    view_valid: Optional[torch.Tensor] = None, group=None,
+                    n_views: Optional[int] = None) -> Scene:
+        """imgs (V, H, W, 3), intrs (V, 3, 3), c2ws (V, 4, 4) -> Scene.
+        With a view ``group`` these are this rank's views (``view_valid``
+        zero on padding): the volumes come from the group's sums, and the
+        scene holds the group's features, images and cameras gathered in
+        rank order and cut to the first ``n_views``."""
         features = self.extract_features(imgs)
         match_features = self.extract_features(imgs, match=True)
-        volumes, mask_vols = self.build_volumes(features, intrs, c2ws)
+        volumes, mask_vols = self.build_volumes(features, intrs, c2ws,
+                                                view_valid, group)
+        if group is not None:
+            def gather(xs):
+                # one collective for the list: flattened per view, split back
+                flat = all_gather_views(torch.cat(
+                    [x.reshape(x.shape[0], -1) for x in xs], dim=1),
+                    group)[:n_views]
+                sizes = [x[0].numel() for x in xs]
+                return [f.reshape((n_views,) + x.shape[1:]) for f, x in
+                        zip(torch.split(flat, sizes, dim=1), xs)]
+
+            features = gather(features)
+            match_features = gather(match_features)
+            imgs, intrs, c2ws = gather([imgs, intrs, c2ws])
         return Scene(volumes=volumes, mask_volumes=mask_vols,
                      features=features, match_features=match_features,
                      imgs=imgs, intrs=intrs, c2ws=c2ws,

@@ -22,6 +22,12 @@ a plain ``.to(bf16)`` round trip would round the cotangent to bf16. Under
 "pallas", ``volume.splat_impl`` chooses the forward (K2 under "kernel2f")
 and K1's rounding at the scales where the JAX kernels run (dim a multiple
 of 16); the other scales take the "table_bf16" path, as in JAX.
+
+Under the ``view`` axis a rank holds some of the views: ``view_valid``
+zeroes the masks of the padded ones, and Σf·m, Σf²·m and Σm are summed
+over the view group before the divide, which reproduces the one-device
+mean and variance (a padded view's K1 launch still runs, on a zero
+cotangent).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from gens_torch.ops.interp import bilerp
+from gens_torch.parallel.collectives import all_reduce_sum
 from gens_torch.ops.projection import apply_linear, scale_intrinsics
 from gens_torch.ops.splat import bilerp_agg_splat, resolve_splat_impl
 
@@ -51,14 +58,17 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
                     c2ws: torch.Tensor, dim: int, scale_idx: int,
                     min_vis_view: int = 1, out_dtype=None,
                     splat_mm_dtype: Optional[str] = None,
-                    splat_impl: str = "kernel2"
+                    splat_impl: str = "kernel2",
+                    view_valid: Optional[torch.Tensor] = None, group=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One cascade scale. feat (V, H_i, W_i, C); intrs (V, 3, 3) at the
     finest scale; c2ws (V, 4, 4). ``splat_mm_dtype`` None samples with the
     plain ``bilerp`` (autograd gives the f32 adjoint); a dtype samples
     through :class:`BilerpAggSplat` under ``splat_impl``, whose backward is
-    K1 with that operand dtype. Returns ``volume (dim, dim, dim, 2C)``
-    (mean ‖ var) and ``mask (dim, dim, dim)`` float."""
+    K1 with that operand dtype. ``view_valid`` (V,) multiplies each view's
+    mask; with a ``group`` the three sums are summed over it. Returns
+    ``volume (dim, dim, dim, 2C)`` (mean ‖ var) and ``mask (dim, dim, dim)``
+    float."""
     V, H, W, C = feat.shape
     intrs_i = scale_intrinsics(intrs, scale_idx)
     out_dtype = out_dtype or feat.dtype
@@ -78,6 +88,8 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
             ny = xy[:, 1] / ((H - 1) / 2.0) - 1.0
             mask = ((nx.abs() <= 1) & (ny.abs() <= 1) & (cam[:, 2] > 0)
                     ).to(feat.dtype)
+            if view_valid is not None:
+                mask = mask * view_valid[v]
             del cam, uvw, nx, ny
         if splat_mm_dtype is None:
             vals = bilerp(feat[v], xy)
@@ -92,6 +104,12 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
         warp_sq_sum += (vm * vm).float()
         mask_sum += mask.float()
         del xy, vals, vm
+    if group is not None:
+        # one collective for the triplet
+        sums = all_reduce_sum(torch.cat(
+            [warp_sum, warp_sq_sum, mask_sum[:, None]], dim=1), group)
+        warp_sum, warp_sq_sum, mask_sum = sums[:, :C], sums[:, C:2 * C], \
+            sums[:, 2 * C]
     denom = torch.where(mask_sum <= 0, torch.full_like(mask_sum, 1e-8),
                         mask_sum)[:, None]
     mean = warp_sum / denom
@@ -132,21 +150,24 @@ def agg_mean_var(features: Sequence[torch.Tensor], intrs: torch.Tensor,
                  c2ws: torch.Tensor, volume_dims: Sequence[int],
                  min_vis_view: int = 1, out_dtype=None,
                  packed_bilerp=False, splat_mm_dtype: str = "bfloat16",
-                 splat_impl: str = "auto"
+                 splat_impl: str = "auto",
+                 view_valid: Optional[torch.Tensor] = None, group=None
                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Build the full cascade from ``features[i]`` (V, H_i, W_i, C),
     fine-to-coarse. ``packed_bilerp`` in :data:`BF16_FEATURE_MODES` samples
     bf16-rounded feature maps, as the JAX forward reads a bf16 table there,
     and keeps the backward f32 through K1 (:func:`splat_dtype`); under
     "pallas", ``splat_impl`` chooses the forward and K1's rounding
-    (:func:`splat_impl_at`). Returns (volumes, mask_volumes)."""
+    (:func:`splat_impl_at`). ``view_valid`` and ``group`` go to
+    :func:`aggregate_scale`. Returns (volumes, mask_volumes)."""
     volumes, masks = [], []
     for i, dim in enumerate(volume_dims):
         vol, m = aggregate_scale(
             features[i], intrs, c2ws, dim, i, min_vis_view=min_vis_view,
             out_dtype=out_dtype,
             splat_mm_dtype=splat_dtype(packed_bilerp, dim, splat_mm_dtype),
-            splat_impl=splat_impl_at(packed_bilerp, dim, splat_impl))
+            splat_impl=splat_impl_at(packed_bilerp, dim, splat_impl),
+            view_valid=view_valid, group=group)
         volumes.append(vol)
         masks.append(m)
     return volumes, masks

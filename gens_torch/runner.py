@@ -16,8 +16,19 @@ into pinned memory while step i runs (``utils/prefetch.py``). ``--resume
 auto`` continues from the newest good checkpoint (``latest_checkpoint``);
 a SIGTERM writes ``preempt.ckpt`` at the next log point or epoch end and
 returns (``utils/preemption.py``); a non-finite loss writes
-``emergency.ckpt`` and raises. One device; the JAX runner's sharded loop
-is a later slice.
+``emergency.ckpt`` and raises.
+
+Several ranks (``parallel/distributed.py``, one process each, ``data`` ×
+``view`` of them): a step trains ``parallel.data`` scenes, one per data
+row, through ``parallel/sharded.py``; an epoch is ceil(len / data) steps
+of an identically seeded order whose remainder wraps into a fresh
+permutation, and each rank decodes only its row's item. The ranks of a
+row decode it with identically seeded draws, which a checksum proves at
+each epoch's first step. Rank 0 alone writes the checkpoints, the metrics
+log and the code backup, and the others wait at a barrier until a
+checkpoint is on disk; the preemption flag is agreed at every log point.
+Validation splits the scenes round-robin over the ranks and merges the
+metric sums.
 
 Validation, per scene: build the scene, extract the mesh through K3, clean
 it when ``clean_mesh`` is set (``mesh/clean.py``: the views' masks, then the
@@ -51,6 +62,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gens_torch.config import Config
 from gens_torch.convert import load_checkpoint, load_params
@@ -60,6 +72,12 @@ from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.renderer import Scene
+from gens_torch.parallel.distributed import (RankLayout, allreduce_host,
+                                             allreduce_host_sums, barrier,
+                                             is_main_process, make_layout,
+                                             process_count, process_index,
+                                             rank_seed)
+from gens_torch.parallel.sharded import ShardedTrainStep
 from gens_torch.train.checkpoint import (latest_checkpoint,
                                          load_finetune_checkpoint,
                                          save_checkpoint,
@@ -112,6 +130,34 @@ def subsample_to_val_grid(full: np.ndarray, h: int, w: int) -> np.ndarray:
     return full[ty[:, None], tx[None, :]]
 
 
+def epoch_order(rng: np.random.RandomState, n: int, n_data: int
+                ) -> np.ndarray:
+    """An epoch's item order: ceil(n / n_data) steps of ``n_data`` items,
+    the remainder wrapping into a fresh permutation instead of being
+    dropped (gens_tpu/runner.py:420-428); with one data row, one
+    permutation."""
+    need = -(-n // n_data) * n_data
+    reps = -(-need // n)
+    return np.concatenate([rng.permutation(n) for _ in range(reps)])[:need]
+
+
+def materialize_schema(item: Dict, use_pseudo: bool, n_pseudo: int) -> Dict:
+    """Give an item without pseudo points zero points and a 0
+    ``pseudo_valid`` (1 where it has them), and zero pseudo depths, so
+    that every scene presents the same batch (gens_tpu/runner.py:347)."""
+    if not use_pseudo:
+        return item
+    item = dict(item)
+    if "pseudo_pts" in item:
+        item["pseudo_valid"] = np.ones((), np.float32)
+    else:
+        item["pseudo_pts"] = np.zeros((n_pseudo, 3), np.float32)
+        item["pseudo_valid"] = np.zeros((), np.float32)
+    if "pseudo_depth" not in item:
+        item["pseudo_depth"] = np.zeros(item["rays_o"].shape[0], np.float32)
+    return item
+
+
 def _float_arrays(raw: Dict) -> Dict[str, torch.Tensor]:
     """The float32 arrays of a dataset item as CPU tensors."""
     return {k: torch.from_numpy(np.ascontiguousarray(v))
@@ -120,8 +166,13 @@ def _float_arrays(raw: Dict) -> Dict[str, torch.Tensor]:
 
 
 class Runner:
+    # the validation metrics, merged over the ranks as [count, Σ metric…]
+    VAL_METRIC_KEYS = ("psnr", "color_loss", "render_depth_loss",
+                       "sdf_depth_loss")
+
     def __init__(self, cfg: Config, device):
         self.cfg = cfg
+        self.main = is_main_process()
         self.device = torch.device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,8 +189,9 @@ class Runner:
             self.exp_dir = os.path.join(self.exp_dir, fd.scene[0],
                                         f"view{fd.ref_view[0]}")
         os.makedirs(self.exp_dir, exist_ok=True)
-        self.logger = MetricsLogger(os.path.join(self.exp_dir, "logs"))
-        if cfg.mode in ("train", "finetune"):
+        self.logger = MetricsLogger(
+            os.path.join(self.exp_dir, "logs") if self.main else None)
+        if cfg.mode in ("train", "finetune") and self.main:
             self._backup_code()
         # seconds and rates of the last validate() call, per scene
         self.stats = []
@@ -174,26 +226,38 @@ class Runner:
             self._preempt = PreemptionGuard().__enter__()
         return self._preempt
 
+    def _save(self, name: str, epoch: int, step: int,
+              step_fn: TrainStep) -> None:
+        """Rank 0 writes ``checkpoints/<name>``; every rank returns once it
+        is on disk."""
+        if self.main:
+            save_checkpoint(os.path.join(self.exp_dir, "checkpoints", name),
+                            epoch, step, self.model, step_fn.optimizer)
+        barrier()
+
     def _preempt_save(self, epoch: int, step: int, step_fn: TrainStep,
                       complete: bool = False) -> None:
         """Write ``preempt.ckpt``. Mid-epoch it records epoch - 1, so that a
         resumed run replays the interrupted epoch from its start (the
         params keep its partial progress); at an epoch's end
         (``complete``) the resumed run starts at epoch + 1."""
-        save_checkpoint(os.path.join(self.exp_dir, "checkpoints",
-                                     "preempt.ckpt"),
-                        epoch if complete else epoch - 1, step, self.model,
-                        step_fn.optimizer)
+        self._save("preempt.ckpt", epoch if complete else epoch - 1, step,
+                   step_fn)
         print(f"preemption checkpoint saved at epoch {epoch} (step {step}); "
               "exiting", flush=True)
 
-    def _host_batch(self, dataset, idx: int
+    def _host_batch(self, dataset, idx: int, schema: bool = False
                     ) -> Tuple[Dict[str, torch.Tensor], float]:
         """Item ``idx``'s float32 arrays as CPU tensors, pinned when the
         runner is on the card, and the seconds its decoding and this
-        took."""
+        took. ``schema``: through :func:`materialize_schema` first."""
         t0 = time.perf_counter()
-        host = _float_arrays(dataset[idx])
+        item = dataset[idx]
+        if schema:
+            item = materialize_schema(
+                item, self.cfg.train.loss.pseudo_sdf_weight > 0,
+                self.cfg.train_dataset.n_pseudo_pts)
+        host = _float_arrays(item)
         if self.device.type == "cuda":
             host = {k: v.pin_memory() for k, v in host.items()}
         return host, time.perf_counter() - t0
@@ -202,17 +266,24 @@ class Runner:
         """The generalizable training loop; ``resume`` continues from a
         checkpoint (params, optimizer state, epoch and step), "auto" from
         the newest in the experiment directory or from scratch when there
-        is none. Returns the mean metrics of the last epoch."""
+        is none. Returns the mean metrics of the last epoch. Under
+        ``parallel.data`` × ``view`` > 1 every rank calls it, in a world of
+        that many ranks."""
         cfg, tc = self.cfg, self.cfg.train
-        if cfg.parallel.data * cfg.parallel.view > 1:
-            # the JAX runner takes parallel.data scenes a step, so its steps
-            # per epoch and LR schedule follow from it
-            raise NotImplementedError(
-                f"parallel.data={cfg.parallel.data} and parallel.view="
-                f"{cfg.parallel.view}: multi-GPU runs are not ported; see "
-                "ROADMAP.md A3")
+        n_data = cfg.parallel.data
+        layout = None
+        if n_data * cfg.parallel.view > 1 or process_count() > 1:
+            layout = make_layout(n_data, cfg.parallel.view)
+            self.generator = torch.Generator().manual_seed(
+                rank_seed(tc.seed, layout.data_row, layout.view_col))
         dataset = get_dataset(cfg.train_dataset, "train", self.rng)
-        steps_per_epoch = len(dataset)
+        # the JAX runner takes parallel.data scenes a step: its steps per
+        # epoch and LR schedule follow from it
+        steps_per_epoch = -(-len(dataset) // n_data)
+        # identical on every rank; the item draws of different data rows
+        # (self.rng) diverge
+        order_rng = (self.rng if n_data == 1
+                     else np.random.RandomState(tc.seed))
         ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
         if resume == "auto":
             resume = latest_checkpoint(ckpt_dir)
@@ -222,7 +293,12 @@ class Runner:
             start_epoch = int(payload["epoch"]) + 1
             step = int(payload.get("step", 0))
         self.start_epoch = start_epoch
-        step_fn = TrainStep(self.model, cfg, steps_per_epoch, start_step=step)
+        if layout is None:
+            step_fn = TrainStep(self.model, cfg, steps_per_epoch,
+                                start_step=step)
+        else:
+            step_fn = ShardedTrainStep(self.model, cfg, steps_per_epoch,
+                                       layout, start_step=step)
         self.step_fn = step_fn
         if payload is not None and payload.get("opt_state") is not None:
             step_fn.optimizer.load_state_dict(payload["opt_state"])
@@ -233,21 +309,22 @@ class Runner:
                 if epoch % cfg.model.match_sync_every == 0:
                     sync_match_features(self.model)
                 step, means, stopped = self._train_epoch(
-                    dataset, step_fn, epoch, step, preempt)
+                    dataset, step_fn, epoch, step, preempt,
+                    epoch_order(order_rng, len(dataset), n_data), layout)
                 if stopped:
                     return means
                 self.logger.log("train_avg", means, epoch)
-                print(f"[train] epoch {epoch} mean: " + ", ".join(
-                    f"{k} {v:.5f}" for k, v in means.items()), flush=True)
+                if self.main:
+                    print(f"[train] epoch {epoch} mean: " + ", ".join(
+                        f"{k} {v:.5f}" for k, v in means.items()),
+                        flush=True)
                 if (epoch + 1) % tc.save_freq == 0 or epoch + 1 >= tc.epochs:
-                    save_checkpoint(os.path.join(ckpt_dir,
-                                                 f"model_{epoch:03d}.ckpt"),
-                                    epoch, step, self.model,
-                                    step_fn.optimizer)
+                    self._save(f"model_{epoch:03d}.ckpt", epoch, step,
+                               step_fn)
                 if (epoch + 1) % tc.val_freq == 0:
                     self.model.eval()
                     self.validate(epoch)
-                if preempt.requested:
+                if preempt.requested_global():
                     self._preempt_save(epoch, step, step_fn, complete=True)
                     return means
         finally:
@@ -256,24 +333,30 @@ class Runner:
         return means
 
     def _train_epoch(self, dataset, step_fn: TrainStep, epoch: int, step: int,
-                     preempt: PreemptionGuard
+                     preempt: PreemptionGuard, order: np.ndarray,
+                     layout: Optional[RankLayout] = None
                      ) -> Tuple[int, Dict[str, float], bool]:
-        """One epoch in a seeded order, the next item decoded on the
-        prefetch thread while a step runs. Returns the step count, the
-        epoch's mean metrics and whether a preemption stopped it (after
-        writing ``preempt.ckpt`` at a log point)."""
-        n = len(dataset)
+        """One epoch over ``order`` (this rank's items: every ``n_data``-th
+        from its data row), the next item decoded on the prefetch thread
+        while a step runs. Returns the step count, the epoch's mean metrics
+        and whether a preemption stopped it (after writing
+        ``preempt.ckpt`` at a log point)."""
+        if layout is not None:
+            order = order[layout.data_row::layout.n_data]
+        n = len(order)
         log_every = max(1, int(self.cfg.train.log_freq * n))
-        order = self.rng.permutation(n)
         avg = DictAverageMeter()
         t_epoch = time.perf_counter()
-        batches = prefetch_map(lambda i: self._host_batch(dataset, int(i)),
-                               list(order))
+        batches = prefetch_map(
+            lambda i: self._host_batch(dataset, int(i), layout is not None),
+            list(order))
         try:
             for batch in range(n):
                 t0 = time.perf_counter()
                 host, decode_s = next(batches)
                 data_wait_s = time.perf_counter() - t0
+                if batch == 0 and layout is not None:
+                    check_row_batch(host, layout)
                 inputs = {k: v.to(self.device, non_blocking=True)
                           for k, v in host.items()}
                 del host
@@ -281,10 +364,8 @@ class Runner:
                                                     epoch + batch / n)
                 step += 1
                 if not np.isfinite(scalars["loss"]):
-                    save_checkpoint(os.path.join(self.exp_dir, "checkpoints",
-                                                 "emergency.ckpt"),
-                                    epoch, step, self.model,
-                                    step_fn.optimizer)
+                    # every rank sees the same (all-reduced) metrics
+                    self._save("emergency.ckpt", epoch, step, step_fn)
                     raise FloatingPointError(
                         f"non-finite loss at epoch {epoch}: {scalars} -- "
                         "emergency checkpoint saved")
@@ -294,15 +375,16 @@ class Runner:
                     **scalars})
                 avg.update(scalars)
                 if batch % log_every == 0:
-                    print(f"[train] epoch {epoch} step {step}: loss "
-                          f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "
-                          f"({seconds:.3f} s, data wait {data_wait_s:.3f} s)",
-                          flush=True)
+                    if self.main:
+                        print(f"[train] epoch {epoch} step {step}: loss "
+                              f"{scalars['loss']:.5f} psnr "
+                              f"{scalars['psnr']:.3f} ({seconds:.3f} s, "
+                              f"data wait {data_wait_s:.3f} s)", flush=True)
                     self.logger.log("train", {
                         **avg.avg_data,
                         "sec_per_step": (time.perf_counter() - t_epoch)
                         / (batch + 1)}, epoch * n + batch)
-                    if preempt.requested:
+                    if preempt.requested_global():
                         self._preempt_save(epoch, step, step_fn)
                         return step, avg.avg_data, True
         finally:
@@ -339,6 +421,8 @@ class Runner:
         volume build's seconds and ``ft_step`` the :class:`FinetuneStep`."""
         if not resume:
             raise ValueError("finetune needs a checkpoint (--resume)")
+        if process_count() > 1:
+            raise ValueError("finetune runs in one process")
         cfg, tc = self.cfg, self.cfg.train
         dataset = get_dataset(cfg.finetune_dataset, "finetune", self.rng)
         payload = load_checkpoint(resume)
@@ -448,12 +532,14 @@ class Runner:
     def validate(self, epoch: int = 0) -> Dict[str, float]:
         """Per scene: build, mesh, render, metrics. Records per-scene
         seconds and counts in ``self.stats``, the last scene and its SDF
-        grid in ``last_scene`` / ``last_sdf_grid``; returns mean metrics."""
+        grid in ``last_scene`` / ``last_sdf_grid``; returns mean metrics.
+        Several ranks: rank r takes scenes r, r + world, …, and the means
+        are over every rank's scenes (collective: every rank calls it)."""
         cfg = self.cfg
         dataset = get_dataset(cfg.val_dataset, "val", self.rng)
         self.stats = []
         avg = DictAverageMeter()
-        for idx in range(len(dataset)):
+        for idx in range(process_index(), len(dataset), process_count()):
             raw = dataset[idx]
             inputs = self._tensors(raw)
             st = {"scene": raw["scene"]}
@@ -481,7 +567,10 @@ class Runner:
             self.stats.append(st)
             avg.update(scalars)
             self.logger.log("val", scalars, epoch * 1000 + idx)
-        means = avg.avg_data
+        sums = allreduce_host_sums([avg.count] + [
+            avg.sum.get(k, 0.0) for k in self.VAL_METRIC_KEYS])
+        means = {k: float(sums[1 + i]) / max(float(sums[0]), 1.0)
+                 for i, k in enumerate(self.VAL_METRIC_KEYS)}
         self.logger.log("val_avg", means, epoch)
         return means
 
@@ -554,3 +643,19 @@ class Runner:
             d = os.path.join(self.exp_dir, sub)
             os.makedirs(d, exist_ok=True)
             write_png(os.path.join(d, f"{name}_epoch{tag}.png"), arr)
+
+
+def check_row_batch(host: Dict[str, torch.Tensor], layout: RankLayout
+                    ) -> None:
+    """The ranks of a view group decode the same item through identically
+    seeded draws; a checksum of the batch, compared over the group
+    (collective), proves they hold the same one."""
+    if layout.view_group is None:
+        return
+    c = float(sum(float(v.double().sum()) for v in host.values()))
+    hi, neg_lo = allreduce_host([c, -c], op=dist.ReduceOp.MAX,
+                                group=layout.view_group)
+    if hi != -neg_lo:
+        raise RuntimeError(
+            f"the ranks of data row {layout.data_row} decoded different "
+            f"batches (checksums {-neg_lo} to {hi})")

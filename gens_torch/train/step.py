@@ -36,6 +36,7 @@ from gens_torch.train.schedule import warmup_cosine_factor
 # top-level module -> optimizer group
 GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
           "feature": "feat", "reg": "feat"}
+# the sharded step's backward phase includes the gradient all-reduce
 PHASES = ("build_scene", "render", "backward", "optimizer")
 FINETUNE_PHASES = ("render", "backward", "optimizer")
 
@@ -128,7 +129,11 @@ class TrainStep:
     ``psnr`` and ``s_val``). After the call the parameters' ``.grad`` hold
     this step's gradients. With ``timing=True`` the metrics also hold
     ``phase_ms``: milliseconds of build_scene, render (with the losses),
-    backward and the optimizer update."""
+    backward and the optimizer update.
+
+    The sharded step (``parallel/sharded.py``) overrides the hooks
+    ``_scene``, ``_losses``, ``_psnr``, ``_reduce_grads`` and
+    ``_reduce_metrics``; here they are the one-device step's."""
 
     def __init__(self, model: GenSModel, cfg: Config, steps_per_epoch: int,
                  start_step: int = 0):
@@ -147,17 +152,17 @@ class TrainStep:
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
         marks = _Marks(inputs["imgs"].device) if timing else None
-        scene = model.build_scene(inputs["imgs"], inputs["intrs"],
-                                  inputs["c2ws"])
+        scene, inputs = self._scene(inputs)
         if marks:
             marks.mark()
         outputs = model.render_train(scene, inputs, cos_anneal_ratio,
                                      use_match_features, generator,
                                      perturb_noise, sparse_pts)
-        losses = compute_losses(outputs, inputs, self.cfg.train.loss)
+        losses = self._losses(outputs, inputs)
         if marks:
             marks.mark()
         losses["loss"].backward()
+        self._reduce_grads()
         if marks:
             marks.mark()
         self.optimizer.step()
@@ -165,11 +170,29 @@ class TrainStep:
         if marks:
             marks.mark()
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["psnr"] = psnr(outputs["color_fine"].detach(),
-                               inputs["color"])
+        metrics["psnr"] = self._psnr(outputs["color_fine"].detach(),
+                                     inputs["color"])
         metrics["s_val"] = outputs["s_val"].detach().mean()
+        metrics = self._reduce_metrics(metrics)
         if marks:
             metrics["phase_ms"] = dict(zip(PHASES, marks.ms()))
+        return metrics
+
+    def _scene(self, inputs: Dict[str, torch.Tensor]):
+        """(the scene, the batch the render and the losses read)."""
+        return self.model.build_scene(inputs["imgs"], inputs["intrs"],
+                                      inputs["c2ws"]), inputs
+
+    def _losses(self, outputs: Dict, inputs: Dict) -> Dict:
+        return compute_losses(outputs, inputs, self.cfg.train.loss)
+
+    def _psnr(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return psnr(pred, target)
+
+    def _reduce_grads(self) -> None:
+        pass
+
+    def _reduce_metrics(self, metrics: Dict) -> Dict:
         return metrics
 
 

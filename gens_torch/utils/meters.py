@@ -6,7 +6,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class DictAverageMeter:
@@ -29,9 +29,13 @@ class DictAverageMeter:
 class MetricsLogger:
     """Appends one JSON record a call to ``<log_dir>/metrics.jsonl``
     (``mode``, ``step``, ``time`` and the scalars) and, when tensorboardX
-    imports, writes the scalars to TensorBoard as ``<mode>/<name>``."""
+    imports, writes the scalars to TensorBoard as ``<mode>/<name>``. With
+    ``log_dir`` None (a rank other than 0) it writes nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: Optional[str]):
+        self.path = self.tb = None
+        if log_dir is None:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
         try:
@@ -42,6 +46,8 @@ class MetricsLogger:
             self.tb = SummaryWriter(log_dir)
 
     def log(self, mode: str, scalars: Dict[str, float], step: int):
+        if self.path is None:
+            return
         rec = {"mode": mode, "step": step, "time": time.time(), **scalars}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")

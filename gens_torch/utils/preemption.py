@@ -2,7 +2,13 @@
 gens_tpu/utils/preemption.py): a cloud VM is sent SIGTERM shortly before it
 is reclaimed. The guard turns the signal into a flag; the train loop then
 writes ``preempt.ckpt`` and returns, and ``--resume auto`` continues from
-it. One process, so only the local flag.
+it.
+
+Several ranks: each sees its own signal, perhaps at another step, but they
+must stop together (rank 0 writes the checkpoint while the others wait at
+a barrier). ``requested_global`` agrees across ranks (an all-reduce MAX of
+the flag); every rank calls it at the same log points and epoch ends,
+never per step.
 """
 
 from __future__ import annotations
@@ -10,6 +16,10 @@ from __future__ import annotations
 import signal
 import threading
 from typing import Tuple
+
+import torch.distributed as dist
+
+from gens_torch.parallel.distributed import allreduce_host
 
 
 class PreemptionGuard:
@@ -38,4 +48,10 @@ class PreemptionGuard:
 
     @property
     def requested(self) -> bool:
+        """This process's flag."""
         return self._flag.is_set()
+
+    def requested_global(self) -> bool:
+        """True once any rank was signalled; collective."""
+        return bool(allreduce_host([float(self.requested)],
+                                   op=dist.ReduceOp.MAX)[0])

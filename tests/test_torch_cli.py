@@ -90,13 +90,17 @@ def test_global_attn_is_refused():
 @pytest.mark.parametrize("axis", ["data", "view"])
 def test_parallel_axes_are_refused_before_the_first_step(axis, tmp_path,
                                                          monkeypatch):
+    """parallel.data x parallel.view must equal the number of ranks: one
+    process asked for 4 is refused before a training step is built."""
     import gens_torch.runner as runner_mod
 
     def no_step(*a, **k):
         raise AssertionError("a training step was built")
 
     monkeypatch.setattr(runner_mod, "TrainStep", no_step)
+    monkeypatch.setattr(runner_mod, "ShardedTrainStep", no_step)
     argv = (["--mode", "train", "--device", "cpu", "--set",
              f"parallel.{axis}=4"] + _tiny_overrides(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match=f"parallel.{axis}=4.* needs 4 "
+                       "ranks, and 1 are running"):
         main(argv)
