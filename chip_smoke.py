@@ -93,7 +93,22 @@ the script starts them itself.)
    volume build; K3 512 at its validation); a small DTU training step GPU
    against CPU; confs/bmvs.yaml ``--mode val`` (K3 512). Counters zeroed
    just before and read just after each run.
-11. Several ranks, on the DTU-layout tree: the one-process step at
+11. The options of the JAX model, through ``gens_torch.main`` on the
+   DTU-layout tree at confs/dtu.yaml's width (256³…16³ cascade, 5 views at
+   480x640, 512 rays, 64+64 samples, bf16 as the yaml sets it). "alt":
+   ``backbone: mnasnet`` with its encoder from a ``pretrained_path``
+   pickle that the phase writes from a seeded torchvision-layout state
+   dict through the port's converter, ``use_global_attn`` and ``head:
+   idr``; "adaptive": ``volume.agg: adaptive`` with ``d_volume`` = C. Each
+   trains 3 steps from a seeded init (K1 25 a step under "alt", none under
+   "adaptive", whose backward is the plain bilerp's) and then runs
+   ``--mode val`` of one scene on that checkpoint with a 512³ mesh (K3
+   512); counters zeroed just before and read just after each run. Per
+   config one line: step times, the val scene's time and split, peak
+   memory, launch counts. Then one tiny training step GPU against CPU per
+   option, on the gradients of the module it adds (feature, agg, reg,
+   blending).
+12. Several ranks, on the DTU-layout tree: the one-process step at
    confs/dtu.yaml's widths (f32 dtypes, as the GPU-vs-CPU checks; K1 in
    the backward) from a seeded init on two items with fixed draws; a
    one-rank NCCL group running the sharded step's collectives (its view
@@ -108,7 +123,7 @@ the script starts them itself.)
    metrics within 1e-3). Two ranks on one card time-slice it: their step
    times are no scaling measurement. Every group of ranks has a timeout,
    and a failed rank fails the script.
-12. Prints the card line, the kernels JSON line and, last, the ok line.
+13. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -317,6 +332,9 @@ def main() -> int:
 
     # -- the DTU and BlendedMVS readers, through the entry points ------------
     dtu_path(gens_main, dev)
+
+    # -- the model options, through the entry point -------------------------
+    options_path(gens_main, dev, os.path.join(REPO, "build", "chip_smoke_dtu"))
 
     # -- several ranks, through the entry point ----------------------------
     parallel_path(gens_main, dev,
@@ -743,11 +761,13 @@ def k1_footprint(xy, ct, hw, dim, tile_pixels) -> dict:
     return out
 
 
-def check_small_train(dev, raw=None, name="train step") -> None:
+def check_small_train(dev, raw=None, name="train step", setup=None,
+                      modules=("feature", "sdf")) -> None:
     """One training step of a tiny seeded model on the GPU (K1 in the
     aggregation backward) and on the CPU (its plain version), same batch and
-    draws: the loss and the feature-net and SDF gradients agree. The batch
-    is ``raw`` (a dataset item), else a synthetic scene's."""
+    draws: the loss and the gradients of ``modules`` agree. The batch is
+    ``raw`` (a dataset item), else a synthetic scene's; ``setup(model_cfg)``
+    switches options on."""
     from gens_torch.config import Config
     from gens_torch.data.synthetic import SyntheticDataset
     from gens_torch.models.gens import GenSModel
@@ -761,6 +781,8 @@ def check_small_train(dev, raw=None, name="train step") -> None:
     m.render.n_samples, m.render.n_importance = 16, 16
     m.render.up_sample_steps, m.render.perturb = 2, 0.0
     m.render.patch_size, m.render.n_sparse_pts = 5, 64
+    if setup is not None:
+        setup(m)
     torch.manual_seed(0)
     models = {"cpu": GenSModel(m)}
     models["gpu"] = GenSModel(m).to(dev)
@@ -782,7 +804,7 @@ def check_small_train(dev, raw=None, name="train step") -> None:
                        if p.grad is not None}
     rel = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
     errs = {}
-    for top in ("feature", "sdf"):
+    for top in modules:
         keys = [k for k in grads["cpu"] if k.split(".")[0] == top]
         a = torch.cat([grads["cpu"][k].reshape(-1) for k in keys])
         b = torch.cat([grads["gpu"][k].reshape(-1) for k in keys])
@@ -1633,6 +1655,200 @@ def bmvs_val_path(gens_main, btree: str) -> None:
         "outside_margin": float(-runner.last_sdf_grid.min()),
         **{k: st[k] for k in ("psnr", "n_tris", "mesh_grid_s", "render_s")}}),
         flush=True)
+
+
+# -- the options phase --------------------------------------------------------
+
+# the options of the JAX model, as confs/dtu.yaml overrides: "alt" puts the
+# MnasNet backbone (its encoder from a pretrained_path pickle), GlobalAttn
+# at the U-Net's 8³ bottleneck and the idr colour head on the path of K1;
+# "adaptive" aggregates by the learned softmax, whose backward is the plain
+# bilerp's (no K1), with reg_network.d_volume = C
+OPTIONS = {
+    "alt": ["model.feature_network.backbone=mnasnet",
+            "model.reg_network.use_global_attn=true",
+            "model.color_network.head=idr"],
+    "adaptive": ["model.volume.agg=adaptive",
+                 "model.reg_network.d_volume=[4,4,4,4,4]"],
+}
+OPTIONS_DIR = os.path.join(REPO, "build", "chip_smoke_options")
+
+
+def torchvision_mnasnet_state(seed: int) -> dict:
+    """A seeded state dict in torchvision's ``mnasnet1_0().layers`` layout
+    (conv weights, BN weight / bias / running statistics), as numpy."""
+    rng = np.random.RandomState(seed)
+    state = {}
+
+    def conv(name, shape):
+        fan_in = shape[1] * shape[2] * shape[3]
+        state[name] = (rng.randn(*shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def bn(prefix, c):
+        state[prefix + ".weight"] = rng.uniform(0.5, 1.5, c).astype(
+            np.float32)
+        state[prefix + ".bias"] = rng.uniform(-0.2, 0.2, c).astype(
+            np.float32)
+        state[prefix + ".running_mean"] = rng.uniform(-0.2, 0.2, c).astype(
+            np.float32)
+        state[prefix + ".running_var"] = rng.uniform(0.5, 2.0, c).astype(
+            np.float32)
+
+    conv("layers.0.weight", (32, 3, 3, 3))
+    bn("layers.1", 32)
+    conv("layers.3.weight", (32, 1, 3, 3))
+    bn("layers.4", 32)
+    conv("layers.6.weight", (16, 32, 1, 1))
+    bn("layers.7", 16)
+    c_in = 16
+    for t_idx, (c_out, k, expand, n) in zip(range(8, 14), (
+            (24, 3, 3, 3), (40, 5, 3, 3), (80, 5, 6, 3), (96, 3, 6, 2),
+            (192, 5, 6, 4), (320, 3, 6, 1))):
+        for b in range(n):
+            mid = (c_in if b == 0 else c_out) * expand
+            base = f"layers.{t_idx}.{b}.layers"
+            conv(f"{base}.0.weight", (mid, c_in if b == 0 else c_out, 1, 1))
+            bn(f"{base}.1", mid)
+            conv(f"{base}.3.weight", (mid, 1, k, k))
+            bn(f"{base}.4", mid)
+            conv(f"{base}.6.weight", (c_out, mid, 1, 1))
+            bn(f"{base}.7", c_out)
+        c_in = c_out
+    return state
+
+
+def options_path(gens_main, dev, tree: str) -> None:
+    """confs/dtu.yaml under each of OPTIONS through ``gens_main`` on the
+    DTU-layout tree: 3 training steps from a seeded init ("alt": K1 25 a
+    step; "adaptive": none), then ``--mode val`` of one scene on that run's
+    checkpoint with a 512³ mesh (K3 512). Per config one line: the step
+    times after the first, the val scene's time and split, the peak
+    memory, the launch counts. Then a tiny training step GPU against CPU
+    for each option, on the gradients of the module it adds."""
+    import pickle
+
+    from gens_torch.convert import load_params
+    from gens_torch.models import mnasnet
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.utils.profiling import device_memory_stats
+
+    os.makedirs(OPTIONS_DIR, exist_ok=True)
+    pretrained = os.path.join(OPTIONS_DIR, "mnasnet_encoder.pkl")
+    with open(pretrained, "wb") as f:
+        pickle.dump(mnasnet.convert_torch_mnasnet(
+            torchvision_mnasnet_state(0)), f)
+    data = [f"{ds}.{k}" for ds in ("train_dataset", "val_dataset")
+            for k in (f"data_dir={tree}", f'scene=["{DTU_SCAN}"]')]
+    conf = os.path.join(REPO, "confs", "dtu.yaml")
+    for name, opts in OPTIONS.items():
+        exp = os.path.join(OPTIONS_DIR, name)
+        opts = opts + ([f"model.feature_network.pretrained_path={pretrained}"]
+                       if name == "alt" else [])
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        runner = gens_main(["--conf", conf, "--mode", "train", "--set",
+                            f"base_exp_dir={exp}",
+                            "train_dataset.ref_view=[0,1,2]",
+                            "train.epochs=1"] + opts + data)
+        train_wall = time.perf_counter() - t0
+        train_counts = launch_counts()
+        train_peak = device_memory_stats(dev)["peak_bytes_gb"]
+        cfg = runner.cfg
+        m = cfg.model
+        assert tuple(m.volume.volume_dims) == (256, 128, 64, 32, 16)
+        assert tuple(cfg.train_dataset.img_hw) == (480, 640)
+        assert cfg.train_dataset.num_src_view == 4
+        assert cfg.train_dataset.n_rays == 512
+        assert (m.render.n_samples, m.render.n_importance) == (64, 64)
+        assert m.reg_network.dtype == m.sdf_network.mlp_dtype == "bfloat16"
+        steps = runner.train_stats
+        assert [s["step"] for s in steps] == [1, 2, 3], steps
+        for st in steps:
+            bad = [k for k, v in st.items() if not np.isfinite(v)]
+            assert not bad, (name, st["step"], bad)
+        k1 = 3 * 5 * len(m.volume.volume_dims) if name == "alt" else 0
+        zeros = {k: 0 for k in train_counts}
+        assert train_counts == {**zeros, "K1": k1}, (name, train_counts)
+        model = runner.model
+        if name == "alt":
+            assert isinstance(model.feature, mnasnet.MnasNetFeatureNetwork)
+            assert model.reg.global_attn is not None
+            assert model.renderer.color_head == "idr"
+            # the BN statistics are the pickle's after 3 steps
+            ref = mnasnet.MnasNetEncoder()
+            mnasnet.load_pretrained_encoder(ref, pretrained)
+            got = model.feature.encoder.state_dict()
+            for k, v in ref.state_dict().items():
+                if "running_" in k:
+                    assert torch.equal(got[k].cpu(), v), k
+        else:
+            assert model.agg is not None
+            assert tuple(m.reg_network.d_volume) == (4,) * 5
+        ckpt = os.path.join(exp, "checkpoints", "model_000.ckpt")
+        loaded = GenSModel(m)
+        load_params(loaded, ckpt)
+        state = model.state_dict()
+        for k, v in loaded.state_dict().items():
+            assert torch.equal(v, state[k].cpu()), (name, k)
+        del runner, model, loaded, state
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        runner = gens_main(["--conf", conf, "--mode", "val", "--resume", ckpt,
+                            "--set", f"base_exp_dir={exp}",
+                            "mesh_resolution=512"] + opts + data)
+        val_wall = time.perf_counter() - t0
+        val_counts = launch_counts()
+        val_peak = device_memory_stats(dev)["peak_bytes_gb"]
+        (st,) = runner.stats
+        assert val_counts == {**zeros, "K3": 512}, (name, val_counts)
+        assert st["rays"] == 120 * 160, st
+        assert st["grid_finite"] and st["render_finite"], st
+        assert np.isfinite(st["psnr"]), st
+        print(f"options {name} path: " + json.dumps({
+            "options": opts, "train_wall_s": train_wall,
+            "first_step_ms": steps[0]["step_s"] * 1e3,
+            "later_steps_ms": [s["step_s"] * 1e3 for s in steps[1:]],
+            "train_peak_mem_gb": train_peak, "train_launches": train_counts,
+            "val_wall_s": val_wall, "val_peak_mem_gb": val_peak,
+            "val_launches": val_counts,
+            **{k: st[k] for k in ("build_scene_s", "mesh_grid_s",
+                                  "isosurface_s", "render_s", "n_tris",
+                                  "psnr")},
+            "losses": {k: v for k, v in steps[-1].items() if k not in (
+                "epoch", "step", "step_s", "data_wait_s", "decode_s")}}),
+            flush=True)
+        del runner
+        torch.cuda.empty_cache()
+
+    def mnasnet_backbone(m):
+        m.feature_network.backbone = "mnasnet"
+
+    def adaptive_agg(m):
+        m.volume.agg = "adaptive"
+        m.reg_network.d_volume = (4,) * 5
+
+    def global_attn(m):
+        # three scales: a 4³ bottleneck, where GlobalAttn attends over 64
+        # voxels (tiny's five leave one)
+        m.reg_network.use_global_attn = True
+        m.volume.volume_dims = (32, 16, 8)
+        m.reg_network.d_volume, m.reg_network.d_out = (8,) * 3, (4,) * 3
+        m.sdf_network.feat_channels = 12
+
+    def idr_head(m):
+        m.color_network.head = "idr"
+
+    for setup, modules in ((mnasnet_backbone, ("feature", "sdf")),
+                           (adaptive_agg, ("agg", "feature", "sdf")),
+                           (global_attn, ("reg", "sdf")),
+                           (idr_head, ("blending", "sdf"))):
+        check_small_train(dev, name=f"option {setup.__name__} train step",
+                          setup=setup, modules=modules)
 
 
 # -- the parallel path --------------------------------------------------------

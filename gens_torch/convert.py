@@ -20,7 +20,12 @@ torch (out, in, kh, kw); ConvTranspose kernels become (in, out, kh, kw),
 spatially flipped (see ``models/feature_net.py``); the U-Net's stacked
 (3, 3, 3C, out) kernels [w_up | w_mid | w_dn] become Conv3d (out, C, 3, 3, 3)
 with kx = 0, 1, 2 holding w_dn, w_mid, w_up; Dense kernels (in, out) become
-Linear (out, in). The SDF network keeps the (in, out) ``v`` layout.
+Linear (out, in). The SDF network and the idr colour head keep the (in,
+out) ``v`` layout. The MnasNet backbone's tree (``encoder/...``,
+``decod_layer{k}``, ``out_layer{i}``) carries a ``batch_stats`` collection
+beside ``params``: its BatchNorm ``mean`` / ``var`` are the port's
+``running_mean`` / ``running_var`` buffers, and its ``scale`` the BN
+``weight``. LayerNorm ``scale`` (``reg/GlobalAttn_0``) is ``weight`` too.
 
 Only load checkpoints this project wrote: unpickling runs code.
 """
@@ -93,9 +98,71 @@ def _feature_state(tree, prefix: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _leaves(tree, path=()):
+    """(path, leaf) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+_BN_PARAM = {"scale": "weight", "bias": "bias"}
+_BN_STAT = {"mean": "running_mean", "var": "running_var"}
+
+
+def mnasnet_state(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A MnasNet ``{"params", "batch_stats"}`` tree (the feature network's,
+    or the encoder's alone as the ``pretrained_path`` pickle holds it) ->
+    the port module's state dict, keys prefixed by ``prefix``."""
+    out = {}
+    for (*mods, leaf), a in _leaves(tree["params"]):
+        if mods[-1] == "bn":
+            out[".".join(mods) + "." + _BN_PARAM[leaf]] = _t(a)
+        elif mods[-1] == "ConvTranspose_0" and leaf == "kernel":
+            out[".".join(mods[:-1]) + ".weight"] = _conv_transpose2d(a)
+        elif leaf == "kernel" and (mods[-1] == "conv" or re.fullmatch(
+                r"out_layer\d", mods[-1])):
+            out[".".join(mods) + ".weight"] = _conv2d(a)
+        else:
+            raise KeyError(f"unexpected mnasnet param {'/'.join(mods)}/{leaf}")
+    for (*mods, leaf), a in _leaves(tree.get("batch_stats", {})):
+        out[".".join(mods) + "." + _BN_STAT[leaf]] = _t(a)
+    return {prefix + k: v for k, v in out.items()}
+
+
+def _dense(prefix: str, sub) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(sub["kernel"]).t().contiguous(),
+            f"{prefix}.bias": _t(sub["bias"])}
+
+
+def _global_attn_state(tree) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, sub in tree.items():
+        pre = f"reg.global_attn.{name}"
+        if name in ("norm1", "norm2"):
+            out[f"{pre}.weight"] = _t(sub["scale"])
+            out[f"{pre}.bias"] = _t(sub["bias"])
+        else:
+            out.update(_dense(pre, sub))
+    return out
+
+
+def _agg_state(tree) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, sub in _inner(tree).items():
+        if re.fullmatch(r"agg_mlp_\d+_(hidden|out)", name) is None:
+            raise KeyError(f"unexpected agg param {name!r}")
+        out.update(_dense(f"agg.{name}", sub))
+    return out
+
+
 def _reg_state(tree) -> Dict[str, torch.Tensor]:
     out = {}
     for name, sub in _inner(tree).items():
+        if name == "GlobalAttn_0":
+            out.update(_global_attn_state(sub))
+            continue
         m = re.fullmatch(r"(?:Checkpoint)?(Conv3dBlock|Upsample3dBlock)_(\d+)",
                          name)
         if m is None:
@@ -127,6 +194,10 @@ def _blending_state(tree) -> Dict[str, torch.Tensor]:
         if name == "s":
             out["blending.s"] = _t(sub)
             continue
+        if re.fullmatch(r"lin\d+", name):  # the idr head
+            out.update({f"blending.{name}.{leaf}": _t(a)
+                        for leaf, a in sub.items()})
+            continue
         i = int(re.fullmatch(r"MLP_(\d+)", name).group(1))
         for dname, dense in sub.items():
             j = int(re.fullmatch(r"Dense_(\d+)", dname).group(1))
@@ -138,12 +209,14 @@ def _blending_state(tree) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX GenS param tree (numpy leaves) -> ``GenSModel`` state dict, f32."""
-    if "agg" in tree:
-        raise NotImplementedError(
-            "param subtree 'agg' (adaptive aggregation) is not ported")
     state = {}
-    state.update(_feature_state(tree["feature"], "feature"))
-    state.update(_feature_state(tree["match_feature"], "match_feature"))
+    for top in ("feature", "match_feature"):
+        if "encoder" in _inner(tree[top]):
+            state.update(mnasnet_state(tree[top], f"{top}."))
+        else:
+            state.update(_feature_state(tree[top], top))
+    if "agg" in tree:
+        state.update(_agg_state(tree["agg"]))
     state.update(_reg_state(tree["reg"]))
     state.update(sdf_state(tree["sdf"]))
     state.update(_blending_state(tree["blending"]))
@@ -229,6 +302,32 @@ _TO_JAX = [
                 "kernel"), _conv_transpose2d_to_jax),
     (r"(feature|match_feature)\.heads\.(\d+)\.weight",
      lambda m: (m[1], "params", f"Conv_{m[2]}", "kernel"), _conv2d_to_jax),
+    (r"(feature|match_feature)\.encoder\.(.+)\.conv\.weight",
+     lambda m: (m[1], "params", "encoder", *m[2].split("."), "conv",
+                "kernel"), _conv2d_to_jax),
+    (r"(feature|match_feature)\.encoder\.(.+)\.bn\.(weight|bias)",
+     lambda m: (m[1], "params", "encoder", *m[2].split("."), "bn",
+                {"weight": "scale", "bias": "bias"}[m[3]]), _np),
+    (r"(feature|match_feature)\.encoder\.(.+)\.bn\.running_(mean|var)",
+     lambda m: (m[1], "batch_stats", "encoder", *m[2].split("."), "bn",
+                m[3]), _np),
+    (r"(feature|match_feature)\.(decod_layer\d)\.weight",
+     lambda m: (m[1], "params", m[2], "ConvTranspose_0", "kernel"),
+     _conv_transpose2d_to_jax),
+    (r"(feature|match_feature)\.(out_layer\d)\.weight",
+     lambda m: (m[1], "params", m[2], "kernel"), _conv2d_to_jax),
+    (r"agg\.(agg_mlp_\d+_(?:hidden|out))\.weight",
+     lambda m: ("agg", "params", m[1], "kernel"), lambda w: _np(w.t())),
+    (r"agg\.(agg_mlp_\d+_(?:hidden|out))\.bias",
+     lambda m: ("agg", "params", m[1], "bias"), _np),
+    (r"reg\.global_attn\.(norm\d)\.(weight|bias)",
+     lambda m: ("reg", "params", "GlobalAttn_0", m[1],
+                {"weight": "scale", "bias": "bias"}[m[2]]), _np),
+    (r"reg\.global_attn\.(\w+)\.weight",
+     lambda m: ("reg", "params", "GlobalAttn_0", m[1], "kernel"),
+     lambda w: _np(w.t())),
+    (r"reg\.global_attn\.(\w+)\.bias",
+     lambda m: ("reg", "params", "GlobalAttn_0", m[1], "bias"), _np),
     (r"reg\.blocks\.(\d+)\.weight",
      lambda m: ("reg", "params", f"CheckpointConv3dBlock_{m[1]}", "kernel"),
      _conv3d_to_jax),
@@ -240,6 +339,8 @@ _TO_JAX = [
                 "Conv3dBlock_0", "kernel"), _conv3d_to_jax),
     (r"sdf\.(lin\d+)\.(v|g|b)",
      lambda m: ("sdf", "params", m[1], m[2]), _np),
+    (r"blending\.(lin\d+)\.(v|g|b)",
+     lambda m: ("blending", "params", m[1], m[2]), _np),
     (r"blending\.mlps\.(\d+)\.layers\.(\d+)\.weight",
      lambda m: ("blending", "params", f"MLP_{m[1]}", f"Dense_{m[2]}",
                 "kernel"), lambda w: _np(w.t())),

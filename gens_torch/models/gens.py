@@ -15,8 +15,16 @@ masks and features stay frozen, and :meth:`GenSModel.forward_finetune`
 renders from them.
 
 The JAX parameter tree's top-level keys map to submodules: ``feature``,
-``match_feature`` (the frozen matching copy), ``reg``, ``sdf``,
-``blending`` and ``variance`` (``convert.py`` does the mapping).
+``match_feature`` (the frozen matching copy), ``agg`` (under ``volume.agg:
+adaptive``), ``reg``, ``sdf``, ``blending`` and ``variance``
+(``convert.py`` does the mapping).
+
+The options of the JAX model are built as it builds them:
+``feature_network.backbone: mnasnet`` (its encoder loaded from
+``pretrained_path`` when one is set), ``volume.agg: adaptive`` (C channels
+per scale, so ``reg_network.d_volume`` is C), ``reg_network.use_global_attn``
+and ``color_network.head: idr`` (the colour from the point, the normal, the
+view direction and the SDF latent, in place of the blending).
 """
 
 from __future__ import annotations
@@ -31,10 +39,13 @@ from gens_torch.config import ModelConfig
 from gens_torch.models.blending_net import (BlendingNetwork,
                                             SingleVarianceNetwork)
 from gens_torch.models.feature_net import FeatureNetwork
+from gens_torch.models.mnasnet import (MnasNetFeatureNetwork,
+                                       load_pretrained_encoder)
 from gens_torch.models.reg_net import RegNetwork
 from gens_torch.models.renderer import Renderer, Scene
+from gens_torch.models.rendering_net import RenderingNetwork
 from gens_torch.models.sdf_net import SDFNetwork
-from gens_torch.models.volume import agg_mean_var, voxel_grid
+from gens_torch.models.volume import AdaptiveAgg, agg_mean_var, voxel_grid
 from gens_torch.ops.interp import combine_mask_cascade
 from gens_torch.parallel.collectives import all_gather_views
 
@@ -42,34 +53,36 @@ from gens_torch.parallel.collectives import all_gather_views
 class GenSModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.feature_network.backbone != "fpn":
-            raise NotImplementedError(
-                "only the fpn backbone is ported; see ROADMAP.md")
-        if cfg.volume.agg != "mean_var":
-            raise NotImplementedError(
-                "only mean_var aggregation is ported; see ROADMAP.md")
-        if cfg.color_network.head != "blending":
-            raise NotImplementedError(
-                "only the blending color head is ported; see ROADMAP.md")
-        if cfg.reg_network.use_global_attn:
-            raise NotImplementedError(
-                "reg_network.use_global_attn (GlobalAttn at the U-Net "
-                "bottleneck) is not ported; see ROADMAP.md A4")
         self.cfg = cfg
-        self.feature = FeatureNetwork(cfg.feature_network)
-        self.match_feature = FeatureNetwork(cfg.feature_network)
+        fc, cn = cfg.feature_network, cfg.color_network
+        if fc.backbone == "mnasnet":
+            self.feature = MnasNetFeatureNetwork(fc)
+            self.match_feature = MnasNetFeatureNetwork(fc)
+            if fc.pretrained_path:
+                load_pretrained_encoder(self.feature.encoder,
+                                        fc.pretrained_path)
+        else:
+            self.feature = FeatureNetwork(fc)
+            self.match_feature = FeatureNetwork(fc)
         # the frozen matching copy (resynced from ``feature`` by the trainer)
         self.match_feature.load_state_dict(self.feature.state_dict())
         self.match_feature.requires_grad_(False)
+        self.agg = (AdaptiveAgg(fc.d_out[:len(cfg.volume.volume_dims)])
+                    if cfg.volume.agg == "adaptive" else None)
         self.reg = RegNetwork(cfg.reg_network)
         self.sdf = SDFNetwork(cfg.sdf_network)
-        self.blending = BlendingNetwork(cfg.color_network)
+        if cn.head == "idr":
+            self.blending = RenderingNetwork(
+                d_feature=cfg.sdf_network.d_out - 1, mode=cn.idr_mode,
+                d_hidden=cn.idr_d_hidden, n_layers=cn.idr_n_layers,
+                multires_view=cn.idr_multires_view)
+        else:
+            self.blending = BlendingNetwork(cn)
         self.variance = SingleVarianceNetwork(cfg.variance_network.init_val)
-        cn = cfg.color_network
         self.renderer = Renderer(
             self.sdf, self.blending, self.variance, cfg.render,
             bf16_color_maps=bool(cn.packed_bilerp)
-            and cn.packed_dtype == "bfloat16")
+            and cn.packed_dtype == "bfloat16", color_head=cn.head)
 
     def extract_features(self, imgs: torch.Tensor, match: bool = False
                          ) -> Tuple[torch.Tensor, ...]:
@@ -84,14 +97,26 @@ class GenSModel(nn.Module):
                       view_valid: Optional[torch.Tensor] = None, group=None
                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """The raw cascade through ``agg_mean_var`` (``view_valid`` and the
-        view ``group`` passed on), then the U-Net."""
+        view ``group`` passed on) or the adaptive aggregation, then the
+        U-Net."""
         v = self.cfg.volume
-        raw_vols, mask_vols = agg_mean_var(
-            features, intrs, c2ws, v.volume_dims,
-            min_vis_view=v.min_vis_view,
-            out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
-            packed_bilerp=v.packed_bilerp, splat_mm_dtype=v.splat_mm_dtype,
-            splat_impl=v.splat_impl, view_valid=view_valid, group=group)
+        if self.agg is not None:
+            if group is not None:
+                # the JAX aggregation has no view axis: a rank would weight
+                # its own views alone (ROADMAP.md C)
+                raise ValueError("volume.agg: adaptive has no view axis; "
+                                 "it runs under parallel.view = 1 only")
+            raw_vols, mask_vols = self.agg(features, intrs, c2ws,
+                                           v.volume_dims,
+                                           min_vis_view=v.min_vis_view)
+        else:
+            raw_vols, mask_vols = agg_mean_var(
+                features, intrs, c2ws, v.volume_dims,
+                min_vis_view=v.min_vis_view,
+                out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
+                packed_bilerp=v.packed_bilerp,
+                splat_mm_dtype=v.splat_mm_dtype, splat_impl=v.splat_impl,
+                view_valid=view_valid, group=group)
         return self.reg(raw_vols), mask_vols
 
     def build_scene(self, imgs: torch.Tensor, intrs: torch.Tensor,

@@ -31,3 +31,12 @@ def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 def he_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
     return variance_scaling_(t, 2.0, fan_in)
+
+
+def dense(d_in: int, d_out: int) -> torch.nn.Linear:
+    """A flax ``nn.Dense`` as ``nn.Linear``: lecun-normal weight, zero
+    bias."""
+    lin = torch.nn.Linear(d_in, d_out)
+    lecun_normal_(lin.weight, d_in)
+    torch.nn.init.zeros_(lin.bias)
+    return lin

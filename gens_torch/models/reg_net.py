@@ -14,6 +14,14 @@ padding 0. InstanceNorm is E[y²] − E[y]² in f32, as in the JAX block.
 
 Public call: a list of (X_i, Y_i, Z_i, C) volumes in, a list of
 (X_i, Y_i, Z_i, d_out[i]) volumes out (no batch axis).
+
+``reg_network.use_global_attn`` puts :class:`GlobalAttn`, a post-norm
+transformer block over the flattened voxels, at the bottleneck (the
+coarsest encoder output). As flax's ``Dense`` promotes a bf16 input
+against its f32 params, the block computes in f32 under ``reg_network.dtype:
+bfloat16`` and its output is cast back to the bottleneck's dtype; the score
+divisor is √d_keys rounded to the input's dtype (5.65625 in bf16 for
+d_keys = 32). :class:`RegNetworkLite` is the single-output variant.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch.nn.functional as F
 
 from gens_torch.config import RegNetConfig
 from gens_torch.models.feature_net import same_pad
-from gens_torch.models.init import lecun_normal_
+from gens_torch.models.init import lecun_normal_, dense
 
 
 class Conv3dBlock(nn.Module):
@@ -75,15 +83,80 @@ class Upsample3dBlock(nn.Module):
         return self.conv(x)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: statistics E[x], E[x²] − E[x]² in f32 over the
+    last axis, epsilon 1e-6, then scale and bias."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def score_divisor(d_keys: int, dtype: torch.dtype) -> float:
+    """√d_keys computed in ``dtype``, as the JAX block's
+    ``sqrt(asarray(d_keys, h.dtype))``: 5.65625 in bf16 for 32."""
+    return float(torch.sqrt(torch.tensor(float(d_keys), dtype=dtype)))
+
+
+class GlobalAttn(nn.Module):
+    """Transformer block over the flattened voxels of an unbatched (C, X,
+    Y, Z) volume: multi-head attention, x + relu(attn), LayerNorm, a ReLU
+    feed-forward residual, LayerNorm. Returns f32 (C, X, Y, Z)."""
+
+    def __init__(self, c: int, d_ff: int, d_keys: int, d_values: int,
+                 n_heads: int):
+        super().__init__()
+        self.d_keys, self.n_heads = d_keys, n_heads
+        self.query = dense(c, d_keys * n_heads)
+        self.key = dense(c, d_keys * n_heads)
+        self.value = dense(c, d_values * n_heads)
+        self.out = dense(d_values * n_heads, c)
+        self.norm1 = LayerNorm(c)
+        self.linear1 = dense(c, d_ff)
+        self.linear2 = dense(d_ff, c)
+        self.norm2 = LayerNorm(c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        C = x.shape[0]
+        div = score_divisor(self.d_keys, x.dtype)
+        h = x.reshape(C, -1).t().float()  # (L, C)
+        L, H = h.shape[0], self.n_heads
+        q = self.query(h).reshape(L, H, -1)
+        k = self.key(h).reshape(L, H, -1)
+        v = self.value(h).reshape(L, H, -1)
+        attn = torch.softmax(torch.einsum("lhd,mhd->hlm", q, k) / div,
+                             dim=-1)
+        out = self.out(torch.einsum("hlm,mhd->lhd", attn, v).reshape(L, -1))
+        out2 = self.norm1(h + torch.relu(out))
+        ff = self.linear2(torch.relu(self.linear1(out2)))
+        out = self.norm2(ff + out2)
+        return out.t().reshape(x.shape)
+
+
 class RegNetwork(nn.Module):
     """``blocks[k]`` is flax's (Checkpoint)Conv3dBlock_k, ``ups[k]`` its
-    (Checkpoint)Upsample3dBlock_k, in creation order."""
+    (Checkpoint)Upsample3dBlock_k, in creation order; ``global_attn`` is
+    GlobalAttn_0 under ``use_global_attn``."""
+
+    # one output head per scale; RegNetworkLite emits the finest alone
+    single_output = False
 
     def __init__(self, cfg: RegNetConfig):
         super().__init__()
         self.cfg = cfg
-        n = len(cfg.d_out)
         dv = list(cfg.d_volume)
+        n = len(dv) if self.single_output else len(cfg.d_out)
+        self.n = n
         blocks = [Conv3dBlock(dv[0], cfg.d_base)]
         c = cfg.d_base
         enc_ch = [c]
@@ -101,17 +174,22 @@ class RegNetwork(nn.Module):
             ups.append(Upsample3dBlock(d_ch, out))
             d_ch = out
             dec_ch[i] = out
-        for i in range(n):
+        for i in range(1 if self.single_output else n):
             blocks.append(Conv3dBlock(dec_ch[i], cfg.d_out[i],
                                       norm_relu=False))
         self.blocks = nn.ModuleList(blocks)
         self.ups = nn.ModuleList(ups)
+        ch = enc_ch[-1]
+        self.global_attn = (
+            GlobalAttn(ch, d_ff=2 * ch, d_keys=max(ch // 4, 8),
+                       d_values=max(ch // 4, 8), n_heads=4)
+            if cfg.use_global_attn and not self.single_output else None)
 
-    def forward(self, volumes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        n = len(self.cfg.d_out)
-        assert len(volumes) == n
-        dt = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
-        vols = [v.permute(3, 0, 1, 2).to(dt) for v in volumes]
+    def decoded(self, vols: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The decoder's volumes (C, X_i, Y_i, Z_i), fine-to-coarse, from
+        the raw cascade (C, X_i, Y_i, Z_i)."""
+        n = self.n
+        assert len(vols) == n
         e = self.blocks[0](vols[0])
         e_outs = [e]
         for i in range(n):
@@ -120,9 +198,28 @@ class RegNetwork(nn.Module):
             e_outs.append(e)
             if i < n - 1:
                 e = torch.cat([e, vols[i + 1]], dim=0)
+        if self.global_attn is not None:
+            e_outs[-1] = self.global_attn(e_outs[-1]).to(e_outs[-1].dtype)
         d_outs = [e_outs[-1]]
         for k, i in enumerate(range(n - 1, -1, -1)):
             d_outs.append(self.ups[k](d_outs[-1]) + e_outs[i])
-        d_outs = d_outs[::-1]
-        return [self.blocks[1 + 2 * n + i](d_outs[i]).permute(1, 2, 3, 0)
-                .contiguous() for i in range(n)]
+        return d_outs[::-1]
+
+    def forward(self, volumes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        dt = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
+        d_outs = self.decoded([v.permute(3, 0, 1, 2).to(dt) for v in volumes])
+        return [self.blocks[1 + 2 * self.n + i](d_outs[i]).permute(1, 2, 3, 0)
+                .contiguous() for i in range(self.n)]
+
+
+class RegNetworkLite(RegNetwork):
+    """Single-output variant (the JAX ``RegNetworkLite``): the same encoder
+    and additive-skip decoder over ``len(d_volume)`` scales in f32, and only
+    the finest volume (X_0, Y_0, Z_0, d_out[0]) emitted."""
+
+    single_output = True
+
+    def forward(self, volumes: Sequence[torch.Tensor]) -> torch.Tensor:
+        d_outs = self.decoded([v.permute(3, 0, 1, 2).float() for v in volumes])
+        return self.blocks[1 + 2 * self.n](d_outs[0]).permute(1, 2, 3, 0) \
+            .contiguous()

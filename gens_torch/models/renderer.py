@@ -7,6 +7,11 @@ keys validation reads; ``train=True`` adds the training outputs: the
 Hessian·1 ``smooth`` term, Eikonal residuals, sparse random-point SDF, the
 TV regularizer and the patch warp of the multi-view feature consistency
 (MFC) loss, all differentiable w.r.t. the parameters and the volumes.
+
+Under ``color_network.head: idr`` the colour head takes (points, masked SDF
+gradients, view directions, SDF latent) instead of the source views'
+warped features, and every ray counts as valid; in training the colour
+loss then differentiates through the normals as well.
 """
 
 from __future__ import annotations
@@ -88,7 +93,8 @@ class Renderer:
     """Binds the SDF, blending and variance modules to the render math."""
 
     def __init__(self, sdf_net, blending_net, variance_net,
-                 cfg: RenderConfig, bf16_color_maps: bool = False):
+                 cfg: RenderConfig, bf16_color_maps: bool = False,
+                 color_head: str = "blending"):
         self.sdf = sdf_net
         self.blending = blending_net
         self.variance = variance_net
@@ -97,6 +103,7 @@ class Renderer:
         # reads bf16 copies of the source-view maps and the warp stack, and
         # its gradients reach the f32 maps (round_bf16)
         self.bf16_color_maps = bf16_color_maps
+        self.color_head = color_head
 
     # -- SDF helpers -------------------------------------------------------
 
@@ -169,13 +176,18 @@ class Renderer:
                           torch.full_like(sdf_out[:, 0], SDF_SENTINEL))
         gradients = gradients * voxel_mask[:, None]
 
-        imgs, feats = scene.imgs, scene.features
-        if self.bf16_color_maps:
-            imgs = round_bf16(imgs)
-            feats = [round_bf16(f) for f in feats]
-        rgb_feat, ray_diff, view_mask = lookup_feature(
-            pts_flat, imgs, scene.intrs, scene.c2ws, feats)
-        sampled_color = self.blending(rgb_feat, ray_diff, view_mask)
+        view_mask = None
+        if self.color_head == "idr":
+            sampled_color = self.blending(pts_flat, gradients, dirs_flat,
+                                          sdf_out[:, 1:])
+        else:
+            imgs, feats = scene.imgs, scene.features
+            if self.bf16_color_maps:
+                imgs = round_bf16(imgs)
+                feats = [round_bf16(f) for f in feats]
+            rgb_feat, ray_diff, view_mask = lookup_feature(
+                pts_flat, imgs, scene.intrs, scene.c2ws, feats)
+            sampled_color = self.blending(rgb_feat, ray_diff, view_mask)
         sampled_color = (sampled_color * voxel_mask[:, None]).reshape(R, S, 3)
 
         inv_s = torch.clamp(self.variance(), 1e-6, 1e6)
@@ -253,10 +265,15 @@ class Renderer:
             return out
 
         # -- training outputs ----------------------------------------------
-        # ray validity: > 8 samples seen by > 1 source view
-        vm = (view_mask & (voxel_mask[:, None] > 0)).float().reshape(R, S, -1)
-        valid_mask = (vm.sum(dim=2) > 1).float().sum(
-            dim=1, keepdim=True) > 8
+        if view_mask is None:  # the idr head: every ray is valid
+            valid_mask = torch.ones((R, 1), dtype=torch.bool,
+                                    device=rays_o.device)
+        else:
+            # ray validity: > 8 samples seen by > 1 source view
+            vm = (view_mask & (voxel_mask[:, None] > 0)).float().reshape(
+                R, S, -1)
+            valid_mask = (vm.sum(dim=2) > 1).float().sum(
+                dim=1, keepdim=True) > 8
         relax_inside = (pts_norm < 1.2).float() * vmask_rs
         grad_sq_err = (safe_norm(gradients.reshape(R, S, 3), dim=-1)
                        - 1.0) ** 2

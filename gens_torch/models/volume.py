@@ -28,6 +28,12 @@ zeroes the masks of the padded ones, and Σf·m, Σf²·m and Σm are summed
 over the view group before the divide, which reproduces the one-device
 mean and variance (a padded view's K1 launch still runs, on a zero
 cotangent).
+
+:class:`AdaptiveAgg` (``volume.agg: adaptive``) weights the views instead:
+a score MLP per scale, a softmax over the views that see the voxel, C
+channels out. Its backward is the autograd of the plain ``bilerp``, as in
+JAX (no K1), and it has no view axis: the JAX function takes no
+``axis_name``, so the port refuses it under ``parallel.view`` > 1.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn as nn
 
+from gens_torch.models.init import dense
 from gens_torch.ops.interp import bilerp
 from gens_torch.parallel.collectives import all_reduce_sum
 from gens_torch.ops.projection import apply_linear, scale_intrinsics
@@ -79,18 +87,10 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
     mask_sum = torch.zeros((pts.shape[0],), dtype=torch.float32,
                            device=feat.device)
     for v in range(V):
-        with torch.no_grad():
-            w2c = torch.linalg.inv(c2ws[v])
-            cam = apply_linear(pts, w2c[:3, :3], w2c[:3, 3])
-            uvw = apply_linear(cam, intrs_i[v])
-            xy = uvw[:, :2] / (uvw[:, 2:] + 1e-8)
-            nx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
-            ny = xy[:, 1] / ((H - 1) / 2.0) - 1.0
-            mask = ((nx.abs() <= 1) & (ny.abs() <= 1) & (cam[:, 2] > 0)
-                    ).to(feat.dtype)
-            if view_valid is not None:
-                mask = mask * view_valid[v]
-            del cam, uvw, nx, ny
+        xy, mask = project_voxels(pts, intrs_i[v], c2ws[v], (H, W))
+        mask = mask.to(feat.dtype)
+        if view_valid is not None:
+            mask = mask * view_valid[v]
         if splat_mm_dtype is None:
             vals = bilerp(feat[v], xy)
         else:
@@ -118,6 +118,69 @@ def aggregate_scale(feat: torch.Tensor, intrs: torch.Tensor,
         dim, dim, dim, 2 * C)
     mask_volume = (mask_sum > min_vis_view).float().reshape(dim, dim, dim)
     return volume, mask_volume
+
+
+def project_voxels(pts: torch.Tensor, intr: torch.Tensor, c2w: torch.Tensor,
+                   hw: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Voxel centres (N, 3) into one view: pixel xy (N, 2) and the bool
+    mask of the points in front of the camera whose normalized coordinates
+    lie within [-1, 1]. True f32 (no graph)."""
+    H, W = hw
+    with torch.no_grad():
+        w2c = torch.linalg.inv(c2w)
+        cam = apply_linear(pts, w2c[:3, :3], w2c[:3, 3])
+        uvw = apply_linear(cam, intr)
+        xy = uvw[:, :2] / (uvw[:, 2:] + 1e-8)
+        nx = xy[:, 0] / ((W - 1) / 2.0) - 1.0
+        ny = xy[:, 1] / ((H - 1) / 2.0) - 1.0
+        return xy, (nx.abs() <= 1) & (ny.abs() <= 1) & (cam[:, 2] > 0)
+
+
+class AdaptiveAgg(nn.Module):
+    """Learned softmax-weighted cross-view aggregation (the JAX
+    ``AdaptiveAgg``). ``agg_mlp_{i}_hidden`` (C_i -> d_hidden, ReLU) and
+    ``agg_mlp_{i}_out`` (d_hidden -> 1) score each view's sample at scale
+    i; scores of views that miss the voxel are -1e9, so a voxel that no
+    view sees averages the views' out-of-image samples uniformly. Returns
+    (volumes (dim, dim, dim, C_i) f32, masks (dim, dim, dim)); a voxel is
+    valid when strictly more than ``min_vis_view`` views see it."""
+
+    def __init__(self, channels: Sequence[int], d_hidden: int = 16):
+        super().__init__()
+        for i, c in enumerate(channels):
+            self.add_module(f"agg_mlp_{i}_hidden", dense(c, d_hidden))
+            self.add_module(f"agg_mlp_{i}_out", dense(d_hidden, 1))
+
+    def forward(self, features: Sequence[torch.Tensor], intrs: torch.Tensor,
+                c2ws: torch.Tensor, volume_dims: Sequence[int],
+                min_vis_view: int = 1
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        volumes, masks = [], []
+        for i, dim in enumerate(volume_dims):
+            feat = features[i]
+            V, H, W, C = feat.shape
+            intrs_i = scale_intrinsics(intrs, i)
+            pts = voxel_grid(dim, feat.device, feat.dtype)
+            vals, vmask = [], []
+            for v in range(V):
+                xy, m = project_voxels(pts, intrs_i[v], c2ws[v], (H, W))
+                vals.append(bilerp(feat[v], xy))
+                vmask.append(m)
+                del xy
+            feats = torch.stack(vals)  # (V, N, C)
+            vmask = torch.stack(vmask)  # (V, N)
+            del vals
+            hidden = getattr(self, f"agg_mlp_{i}_hidden")
+            out = getattr(self, f"agg_mlp_{i}_out")
+            score = out(torch.relu(hidden(feats)))
+            score = torch.where(vmask[..., None], score,
+                                torch.full_like(score, -1e9))
+            w = torch.softmax(score, dim=0)
+            volumes.append(torch.sum(feats * w, dim=0).reshape(
+                dim, dim, dim, C))
+            masks.append((vmask.sum(dim=0) > min_vis_view).float().reshape(
+                dim, dim, dim))
+        return volumes, masks
 
 
 def _pallas_scale(packed_bilerp, dim: int) -> bool:

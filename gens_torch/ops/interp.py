@@ -47,7 +47,12 @@ def bilerp(image: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
         ix, iy = x0 + dx, y0 + dy
         valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
         idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
-        vals = flat[idx]
+        # index_select: its backward is index_add_ (atomics); advanced
+        # indexing's sorts the indices and sums each run of equal ones in
+        # one warp, and the clamped out-of-image samples make runs of
+        # millions
+        vals = flat.index_select(0, idx.reshape(-1)).reshape(
+            idx.shape + (C,))
         wx = wx1 if dx else 1.0 - wx1
         wy = wy1 if dy else 1.0 - wy1
         w = (wx * wy) * valid.to(wx.dtype)

@@ -13,11 +13,12 @@ settings are: a TF32 pass shifts projected pixels visibly.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
 
-from gens_torch.ops.interp import bilerp, safe_norm
+from gens_torch.ops.interp import bilerp, safe_norm, trilerp
 
 
 def apply_linear(pts: torch.Tensor, mat: torch.Tensor,
@@ -157,3 +158,32 @@ def surface_patch_warp(pts: torch.Tensor, normals: torch.Tensor,
     ref_patches = bilerp(images[0], pix.detach().reshape(-1, 2)).reshape(
         N, P2, -1)
     return ref_patches, src_patches
+
+
+# -- background-sphere (equirectangular) volume lookups -----------------------
+
+
+def equirect2sphere(pts: torch.Tensor) -> torch.Tensor:
+    """World points (N, 3) -> (theta, phi, 1/r) (N, 3): theta = asin(z/r)
+    in [-pi/2, pi/2], phi = atan2(y, x) in [-pi, pi], the radius clipped to
+    at least 1 (points inside the unit sphere map to 1/r = 1)."""
+    # jnp.clip's maximum / minimum: at r == 1 the gradient splits in half
+    n = safe_norm(pts, dim=1, keepdim=True)
+    r = torch.minimum(torch.maximum(n, torch.ones_like(n)),
+                      torch.full_like(n, 1e10))
+    x, y, z = pts[:, :1] / r, pts[:, 1:2] / r, pts[:, 2:3] / r
+    theta = torch.asin(torch.clamp(z, -1.0, 1.0))
+    phi = torch.atan2(y, x)
+    return torch.cat([theta, phi, 1.0 / r], dim=1)
+
+
+def lookup_sphe_volume(sphe_pts: torch.Tensor, volume: torch.Tensor
+                       ) -> torch.Tensor:
+    """Trilinear lookup of an equirectangular background volume (D, H, W, C)
+    at the spherical coordinates of :func:`equirect2sphere`, each mapped to
+    [-1, 1]. Returns (N, C)."""
+    theta, phi, inv_r = sphe_pts[:, :1], sphe_pts[:, 1:2], sphe_pts[:, 2:3]
+    theta = theta / (math.pi / 2.0)
+    phi = phi / math.pi
+    inv_r = ((inv_r - 1e-10) / (1.0 - 1e-10) - 0.5) * 2.0
+    return trilerp(volume, torch.cat([theta, phi, inv_r], dim=1))

@@ -270,6 +270,13 @@ class Runner:
         ``parallel.data`` × ``view`` > 1 every rank calls it, in a world of
         that many ranks."""
         cfg, tc = self.cfg, self.cfg.train
+        if cfg.model.volume.agg == "adaptive" and cfg.parallel.view > 1:
+            # the JAX aggregation takes no axis_name, so its ranks would
+            # weight their own views alone (ROADMAP.md C)
+            raise ValueError(
+                f"volume.agg: adaptive with parallel.view={cfg.parallel.view}"
+                ": the adaptive aggregation has no view axis; use "
+                "parallel.view=1")
         n_data = cfg.parallel.data
         layout = None
         if n_data * cfg.parallel.view > 1 or process_count() > 1:

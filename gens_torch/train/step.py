@@ -5,8 +5,10 @@ warmup-cosine schedule.
 
 Groups, as the JAX ``_param_labels``: ``mlp`` (``sdf``, ``blending``) at
 ``lr_mlp``; ``variance`` at ``lr_mlp · lr_variance_mult``; ``feat``
-(``feature``, ``reg``) at ``lr_feat``. The frozen ``match_feature`` copy is
-in no group (optax ``set_to_zero``). The schedule is a ``LambdaLR`` on
+(``feature``, ``agg``, ``reg``) at ``lr_feat``. The frozen
+``match_feature`` copy is in no group (optax ``set_to_zero``), nor are the
+MnasNet BN statistics, which are buffers (the JAX label "frozen"). The
+schedule is a ``LambdaLR`` on
 ``warmup_cosine_factor(step / steps_per_epoch, …)``, stepped after each
 update, so the first update uses the factor at step 0 as optax's count does.
 torch's Adam and optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the
@@ -35,7 +37,7 @@ from gens_torch.train.schedule import warmup_cosine_factor
 
 # top-level module -> optimizer group
 GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
-          "feature": "feat", "reg": "feat"}
+          "feature": "feat", "agg": "feat", "reg": "feat"}
 # the sharded step's backward phase includes the gradient all-reduce
 PHASES = ("build_scene", "render", "backward", "optimizer")
 FINETUNE_PHASES = ("render", "backward", "optimizer")

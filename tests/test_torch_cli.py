@@ -1,6 +1,7 @@
 """The port's command line and config against the JAX package's: the same
-argument lists set the same mode and mesh options, and the config keys
-that the port does not carry out yet are refused, not ignored."""
+argument lists set the same mode and mesh options, the config keys that
+the port does not carry out are refused, not ignored, and
+``reg_network.use_global_attn`` builds the JAX layout."""
 
 import os
 import shlex
@@ -80,11 +81,28 @@ def test_cli_sets_what_the_jax_cli_sets(name, monkeypatch):
         assert got.clean_mesh and got.mesh_resolution == 256
 
 
-def test_global_attn_is_refused():
-    _, tcfg = tiny_configs()
-    tcfg.model.reg_network.use_global_attn = True
-    with pytest.raises(NotImplementedError, match="use_global_attn"):
-        TGenSModel(tcfg.model)
+def test_global_attn_builds_the_jax_layout():
+    """reg_network.use_global_attn builds GlobalAttn at the U-Net's
+    bottleneck: the port's reg params, carried to JAX, have the names and
+    shapes of the JAX RegNetwork's (GlobalAttn_0 beside the conv blocks)."""
+    from gens_torch.convert import params_to_jax
+    from gens_tpu.models.reg_net import RegNetwork as JRegNetwork
+
+    jcfg, tcfg = tiny_configs()
+    for c in (jcfg, tcfg):
+        c.model.reg_network.use_global_attn = True
+    dims = jcfg.model.volume.volume_dims
+    vols = [jax.ShapeDtypeStruct((1, d, d, d, c), "float32") for d, c in
+            zip(dims, jcfg.model.reg_network.d_volume)]
+    want = jax.eval_shape(JRegNetwork(jcfg.model.reg_network).init,
+                          jax.random.PRNGKey(0), vols)
+    got = params_to_jax({k: v for k, v in
+                         TGenSModel(tcfg.model).state_dict().items()
+                         if k.startswith("reg.")})["reg"]
+    flat = jax.tree_util.tree_flatten_with_path
+    assert ([(p, x.shape) for p, x in flat(got)[0]]
+            == [(p, x.shape) for p, x in flat(want)[0]])
+    assert "GlobalAttn_0" in got["params"]
 
 
 @pytest.mark.parametrize("axis", ["data", "view"])
