@@ -120,9 +120,19 @@ the script starts them itself.)
    parallel.data=2 (counters zeroed and read in each rank; per-rank step
    ms, data wait, K1 a step, peak memory); ``--mode val`` of two DTU
    items on two ranks (K3 512 on each) against one process (merged
-   metrics within 1e-3). Two ranks on one card time-slice it: their step
-   times are no scaling measurement. Every group of ranks has a timeout,
-   and a failed rank fails the script.
+   metrics within 1e-3); ``--mode val`` of one DTU item on two ranks, its
+   rays split over both (K3 512 on rank 0, none on rank 1; the gathered
+   render within 1e-5 relative of a one-process render, the metrics
+   within 1e-3, rank 1 writing nothing); ``--mode finetune`` of
+   confs/dtu_finetune.yaml under ``kernel2f`` on two ranks, 2 steps and
+   one validation (256³ mesh, 288x400 rays) split over both (K2 15 and
+   K3 64 on rank 0, none on rank 1; the split render within 1e-5
+   relative of a one-process render of rank 0's saved state on the first
+   two steps of chunks and the last). One line each: per-rank render
+   seconds and rays, broadcast bytes and seconds, gather seconds, launch
+   counts, peak memory, the check's seconds. Two ranks on one card
+   time-slice it: their times are no scaling measurement. Every group of
+   ranks has a timeout, and a failed rank fails the script.
 13. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -131,6 +141,7 @@ Build outputs and the runs' files go under build/ in the checkout.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1921,8 +1932,10 @@ def run_ranks(argvs, name: str, env_extra=None) -> list:
 
 def rank_main(argv, out: str) -> None:
     """A rank of a parallel run: ``gens_main(argv)`` with the counts zeroed
-    just before and read just after; its launches, step stats, val stats,
-    metrics and peak memory into ``out``."""
+    just before and read just after; its launches, step stats, val and
+    finetune stats, metrics and peak memory into ``out``; where this rank
+    led a validation split over several ranks, its last render into
+    ``<out>.npz`` and its last scene into ``<out>.scene.pt``."""
     from gens_torch.main import main as gens_main
 
     torch.cuda.reset_peak_memory_stats()
@@ -1936,9 +1949,21 @@ def rank_main(argv, out: str) -> None:
                    "val_stats": [{k: v for k, v in st.items()
                                   if not isinstance(v, str)}
                                  for st in runner.stats],
+                   "finetune_stats": [{k: v for k, v in st.items()
+                                       if not isinstance(v, str)}
+                                      for st in runner.finetune_stats],
                    "metrics": runner.metrics,
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
                   f)
+    split = [st for st in runner.stats + runner.finetune_stats
+             if st.get("group_size", 1) > 1]
+    if split and getattr(runner, "last_render", None) is not None:
+        np.savez(out + ".npz", **runner.last_render)
+        sc = runner.last_scene
+        torch.save({k: [t.cpu() for t in getattr(sc, k)] for k in (
+            "volumes", "mask_volumes", "features", "match_features")}
+            | {k: getattr(sc, k).cpu() for k in ("imgs", "intrs", "c2ws")},
+            out + ".scene.pt")
 
 
 # the parity check's dtypes: f32 where confs/dtu.yaml has bf16, as the
@@ -2213,6 +2238,178 @@ def parallel_path(gens_main, dev, tree: str) -> None:
         "merged": ranks[0]["metrics"], "one_process": one.metrics,
         "per_rank_psnr": [r["val_stats"][0]["psnr"] for r in ranks],
         "phase_s": time.perf_counter() - t_phase}), flush=True)
+    del one
+    torch.cuda.empty_cache()
+    split_val_check(gens_main, conf, data)
+    split_finetune_check(tree)
+    print(f"parallel path: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+# the split render against one process on the same card: the same chunks
+# of the same rays through the same kernels
+SPLIT_RTOL = 1e-5
+
+
+def render_rel_err(got: dict, ref: dict, rows=slice(None)) -> float:
+    """max |got - ref| / max |ref| over the render's outputs, at ``rows``
+    of ``got``."""
+    return max(float(np.abs(got[k][rows] - ref[k]).max()
+                     / max(float(np.abs(ref[k]).max()), 1e-30))
+               for k in ref)
+
+
+def split_line(ranks, wall: float) -> dict:
+    """The per-rank numbers of a split validation's line."""
+    def stats(r):
+        return (r["val_stats"] or [s for s in r["finetune_stats"]
+                                   if "val_step" in s])[-1]
+
+    return {"wall_s": wall,
+            **{k: [stats(r).get(k) for r in ranks]
+               for k in ("render_s", "rays", "broadcast_bytes",
+                         "broadcast_s", "gather_s")},
+            "counts": [r["counts"] for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]}
+
+
+def split_val_check(gens_main, conf, data) -> None:
+    """``--mode val`` of one DTU item on two ranks: rank 0 builds, meshes
+    and scores it, both render half its chunks. The gathered render
+    against a one-process render of rank 0's scene, the metrics against a
+    one-process run; K3 on rank 0 only; rank 1 writes nothing. Two
+    processes that build the same scene differ by float noise (the
+    render within one process does not), so the line also gives the
+    one-process run's scene and render against rank 0's."""
+    from gens_torch.models.renderer import Scene
+    from gens_torch.parallel.render_split import RAY_KEYS, split_render
+    from gens_torch.runner import get_dataset
+
+    t0 = time.perf_counter()
+    val = conf + ["--mode", "val", "--resume", DTU_ARTIFACT, "--set",
+                  "val_dataset.ref_view=[23]", "mesh_resolution=512"] + data
+    exp = os.path.join(REPO, "build", "chip_smoke_split_val")
+    shutil.rmtree(exp + "_rank1", ignore_errors=True)
+    ranks, wall = run_ranks(
+        [["--rank-main"] + val + [f"base_exp_dir={exp}{sfx}", "--device",
+                                  "cuda:0", "--dist_backend", "gloo", "--"]
+         for sfx in ("", "_rank1")], "split_val")
+    one = gens_main(val + [f"base_exp_dir={exp}_one", "mesh_resolution=64"])
+    out0 = os.path.join(PARALLEL_DIR, "split_val_rank0.json")
+    got = dict(np.load(out0 + ".npz"))
+    dev = torch.device("cuda")
+    saved = torch.load(out0 + ".scene.pt")
+    scene = Scene(**{k: [t.to(dev) for t in v] if isinstance(v, list)
+                     else v.to(dev) for k, v in saved.items()})
+    raw = get_dataset(one.cfg.val_dataset, "val",
+                      np.random.RandomState(0))[0]
+    with torch.no_grad():
+        ref, _ = split_render(one.model.renderer, scene, {
+            k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(dev)
+            for k in RAY_KEYS})
+    err = render_rel_err(got, ref)
+    build_err = max(float((a - b.float()).abs().max() / b.float().abs().max())
+                    for a, b in zip(one.last_scene.volumes, scene.volumes))
+    zeros = {k: 0 for k in ranks[0]["counts"]}
+    assert ranks[0]["counts"] == {**zeros, "K3": 512}, ranks[0]["counts"]
+    assert ranks[1]["counts"] == zeros, ranks[1]["counts"]
+    assert not os.path.exists(exp + "_rank1"), "rank 1 wrote files"
+    (st0,), (st1,) = ranks[0]["val_stats"], ranks[1]["val_stats"]
+    assert st0["rays"] + st1["rays"] == 120 * 160, (st0["rays"], st1["rays"])
+    assert st0["n_tris"] > 0 and "n_tris" not in st1
+    for r in ranks:
+        for k, v in one.metrics.items():
+            assert abs(r["metrics"][k] - v) <= VAL_MERGE_RTOL * abs(v), (k, v)
+    print("parallel split val one item two ranks (time-sliced on one "
+          "card): " + json.dumps({
+              **split_line(ranks, wall), "render_rel_err": err,
+              "two_builds": {"volume_rel_err": build_err,
+                             "render_rel_err": render_rel_err(
+                                 got, one.last_render)},
+              "merged": ranks[0]["metrics"], "one_process": one.metrics,
+              "check_s": time.perf_counter() - t0}), flush=True)
+    assert err <= SPLIT_RTOL, err
+    del one, scene, saved
+    torch.cuda.empty_cache()
+
+
+def split_finetune_check(tree: str) -> None:
+    """confs/dtu_finetune.yaml under ``kernel2f`` on two ranks, 2 steps and
+    one validation split over both: rank 0 builds the volumes (K2 15),
+    steps, saves and meshes (K3 64 at 256³), rank 1 only renders its
+    chunks. The split render against a one-process render of rank 0's
+    saved state on the first two steps of chunks and the last."""
+    from gens_torch.config import load_config
+    from gens_torch.data.dtu_finetune import DTUFinetuneDataset
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.models.renderer import Scene
+    from gens_torch.parallel.render_split import RAY_KEYS, split_render
+    from gens_torch.train.checkpoint import load_finetune_checkpoint
+
+    t0 = time.perf_counter()
+    overrides = [f"finetune_dataset.data_dir={tree}",
+                 "model.volume.packed_bilerp=pallas",
+                 "model.volume.splat_impl=kernel2f", "train.epochs=2",
+                 "mesh_resolution=256"]
+    conf = os.path.join(REPO, "confs", "dtu_finetune.yaml")
+    exp = os.path.join(REPO, "build", "chip_smoke_split_ft")
+    shutil.rmtree(exp, ignore_errors=True)
+    shutil.rmtree(exp + "_rank1", ignore_errors=True)
+    ranks, wall = run_ranks(
+        [["--rank-main", "--conf", conf, "--mode", "finetune", "--resume",
+          DTU_ARTIFACT, "--device", "cuda:0", "--dist_backend", "gloo",
+          "--set", f"base_exp_dir={exp}{sfx}"] + overrides + ["--"]
+         for sfx in ("", "_rank1")], "split_ft")
+    zeros = {k: 0 for k in ranks[0]["counts"]}
+    assert ranks[0]["counts"] == {**zeros, "K2": 15, "K3": 64}, \
+        ranks[0]["counts"]
+    assert ranks[1]["counts"] == zeros, ranks[1]["counts"]
+    assert not os.path.exists(exp + "_rank1"), "rank 1 wrote files"
+    steps = [s for s in ranks[0]["finetune_stats"] if "loss" in s]
+    assert len(steps) == 2 and all(np.isfinite(s["loss"]) for s in steps)
+    assert not [s for s in ranks[1]["finetune_stats"] if "loss" in s]
+    (v0,) = [s for s in ranks[0]["finetune_stats"] if "val_step" in s]
+    (v1,) = ranks[1]["finetune_stats"]
+    assert v0["rays"] + v1["rays"] == 288 * 400, (v0["rays"], v1["rays"])
+    assert v0["render_finite"] and v0["grid_finite"]
+
+    # one process, rank 0's state at the validated step
+    dev = torch.device("cuda")
+    cfg = load_config(conf, overrides)
+    cfg.mode = "finetune"
+    fd = cfg.finetune_dataset
+    ckpt = os.path.join(exp, fd.scene[0], f"view{fd.ref_view[0]}",
+                        "checkpoints", "model_001.ckpt")
+    model = GenSModel(cfg.model).to(dev).eval()
+    _, arrays = load_finetune_checkpoint(model, ckpt)
+    vols, masks, feats = ([a.to(dev) for a in arrays[k]] for k in (
+        "volumes", "mask_volumes", "features"))
+    raw = DTUFinetuneDataset(fd, rng=np.random.RandomState(0)).get_rays_at(0)
+    inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for k, v in raw.items()
+              if isinstance(v, np.ndarray) and v.dtype == np.float32}
+    view_ids = torch.from_numpy(raw["view_ids"]).to(dev)
+    feats = [f.index_select(0, view_ids) for f in feats]
+    scene = Scene(volumes=vols, mask_volumes=masks, features=feats,
+                  match_features=feats, imgs=inputs["imgs"],
+                  intrs=inputs["intrs"], c2ws=inputs["c2ws"])
+    got = dict(np.load(os.path.join(PARALLEL_DIR, "split_ft_rank0.json.npz")))
+    n, step = inputs["rays_o"].shape[0], 512 * 2
+    errs = []
+    with torch.no_grad():
+        for rows in (slice(0, 2 * step), slice(n - (n % step or step), n)):
+            rays = {k: inputs[k][rows] if k.startswith("rays") else inputs[k]
+                    for k in RAY_KEYS}
+            ref, _ = split_render(model.renderer, scene, rays)
+            errs.append(render_rel_err(got, ref, rows))
+    print("parallel split finetune two ranks (time-sliced on one card): "
+          + json.dumps({**split_line(ranks, wall), "render_rel_err": errs,
+                        "step_ms": [s["step_s"] * 1e3 for s in steps],
+                        "val_psnr": v0["psnr"], "val_n_tris": v0["n_tris"],
+                        "check_s": time.perf_counter() - t0}), flush=True)
+    assert max(errs) <= SPLIT_RTOL, errs
+    del model, scene, vols, masks, feats, inputs
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ One process per rank. Launch contract, as the JAX package's:
     srun python -m gens_torch.main --conf ...
 
 Rank r owns data row r // V and view column r % V; the V ranks of a data
-row form its view group (:func:`make_layout`). Rank r runs on
+row form its view group (:func:`make_layout`). A validation splits its S
+scenes over min(W, S) groups of contiguous ranks (:func:`val_partition`):
+a group renders each of its scenes with the rays split over its ranks.
+Rank r runs on
 ``cuda:{LOCAL_RANK}`` (:func:`rank_device`); the collectives ride NCCL for
 CUDA tensors and gloo for CPU tensors, or gloo when asked (ranks that share
 one card: NCCL refuses two ranks on one device). A single process skips
@@ -29,7 +32,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,3 +227,124 @@ def rank_seed(seed: int, data_row: int, view_col: int) -> int:
     (data, view) index."""
     return int(np.random.SeedSequence([seed, data_row, view_col])
                .generate_state(1)[0])
+
+
+# --- validation groups ------------------------------------------------------
+
+
+def val_partition(world: int, n_scenes: int
+                  ) -> List[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """The validation's (ranks, scenes) groups: g = min(world, n_scenes)
+    groups of contiguous ranks, group k holding ranks [k·W // g,
+    (k+1)·W // g) and scenes k, k + g, k + 2g, …. With at least as many
+    scenes as ranks every group is one rank and rank r takes scenes r,
+    r + W, …; with fewer, a scene's rays split over its group's ranks."""
+    g = min(world, n_scenes)
+    return [(tuple(range(k * world // g, (k + 1) * world // g)),
+             tuple(range(k, n_scenes, g))) for k in range(g)]
+
+
+@dataclass
+class ValGroup:
+    """This rank's validation group: its ranks (the first is the leader,
+    which builds each scene, meshes it and scores it), its scenes, and the
+    process group (None when the group is this rank alone)."""
+
+    ranks: Tuple[int, ...]
+    scenes: Tuple[int, ...]
+    rank: int
+    group: Optional[object] = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def index(self) -> int:
+        return self.ranks.index(self.rank)
+
+    @property
+    def leader(self) -> int:
+        return self.ranks[0]
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == self.leader
+
+
+def val_groups(n_scenes: int) -> ValGroup:
+    """This rank's group of :func:`val_partition` over the running world.
+    Collective when a group has several ranks: every rank creates every
+    such group in the same order (one group spanning the world is the
+    world's own). With no scene, each rank is alone with none."""
+    world, rank = process_count(), process_index()
+    if n_scenes == 0:
+        return ValGroup((rank,), (), rank)
+    mine = None
+    for ranks, scenes in val_partition(world, n_scenes):
+        group = None
+        if len(ranks) == world and world > 1:
+            group = dist.group.WORLD
+        elif len(ranks) > 1:
+            group = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = ValGroup(ranks, scenes, rank, group)
+    return mine
+
+
+def broadcast_tensors(tensors: Optional[Sequence[torch.Tensor]], info,
+                      group: ValGroup, device: torch.device
+                      ) -> Tuple[List[torch.Tensor], object, int]:
+    """The leader's ``tensors`` and picklable ``info`` on every member of
+    ``group`` (collective; the others pass None for both). One object
+    broadcast carries the shapes and dtypes, one byte buffer on ``device``
+    the data: the members get views of it, bit for bit the leader's
+    values, and the leader its own tensors. Returns (tensors, info, bytes
+    of the buffer)."""
+    align = 256  # every view starts on a 256-byte boundary of the buffer
+    lead = group.is_leader
+    meta = [None]
+    if lead:
+        meta = [([(tuple(t.shape), t.dtype) for t in tensors], info)]
+    dist.broadcast_object_list(meta, src=group.leader, group=group.group)
+    shapes, info = meta[0]
+    offsets, total = [], 0
+    for shape, dtype in shapes:
+        offsets.append(total)
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        total += -(-n // align) * align
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    if lead:
+        for t, off in zip(tensors, offsets):
+            flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            buf[off:off + flat.numel()].copy_(flat)
+    dist.broadcast(buf, group.leader, group=group.group)
+    if lead:
+        return list(tensors), info, total
+    out = []
+    for (shape, dtype), off in zip(shapes, offsets):
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out.append(buf[off:off + n].view(dtype).view(shape))
+    return out, info, total
+
+
+def gather_rows(x: torch.Tensor, group: ValGroup
+                ) -> Optional[List[torch.Tensor]]:
+    """Every member's ``x`` (equal shapes) in the group's rank order on the
+    leader, on :func:`comm_device` (gloo gathers no CUDA tensor), and None
+    on the others (collective)."""
+    y = x.to(comm_device())
+    parts = [torch.empty_like(y) for _ in range(group.size)]
+    dist.all_gather(parts, y, group=group.group)
+    return parts if group.is_leader else None
+
+
+def broadcast_ints(values: Sequence[int], src: int = 0) -> List[int]:
+    """Rank ``src``'s small integer vector on every rank (collective; the
+    others pass a vector of the same length). A single process returns
+    it."""
+    if not dist.is_initialized():
+        return list(values)
+    t = torch.tensor(list(values), dtype=torch.int64, device=comm_device())
+    dist.broadcast(t, src)
+    return [int(v) for v in t.tolist()]

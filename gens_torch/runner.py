@@ -27,8 +27,12 @@ row decode it with identically seeded draws, which a checksum proves at
 each epoch's first step. Rank 0 alone writes the checkpoints, the metrics
 log and the code backup, and the others wait at a barrier until a
 checkpoint is on disk; the preemption flag is agreed at every log point.
-Validation splits the scenes round-robin over the ranks and merges the
-metric sums.
+Validation splits its S scenes over min(W, S) groups of contiguous ranks
+(``parallel/distributed.py::val_partition``); a group's leader builds each
+of its scenes and broadcasts it, the group's ranks render its rays in
+chunks split as the JAX render splits them over devices
+(``parallel/render_split.py``), and the leader alone meshes, writes and
+scores it. The metric sums are merged over the ranks.
 
 Validation, per scene: build the scene, extract the mesh through K3, clean
 it when ``clean_mesh`` is set (``mesh/clean.py``: the views' masks, then the
@@ -42,7 +46,9 @@ views (or resume them from a finetune checkpoint), then take ``epochs``
 steps, each on a view drawn from a seeded permutation, with the loss logged
 every ``log_freq`` steps, a checkpoint every ``save_freq`` steps and
 validation (K3 mesh and chunked render of view 0) every ``val_freq`` steps
-and at the end.
+and at the end. Under several ranks rank 0 runs all of that, and the others
+join only its validations' renders, told by a control message from rank 0
+at every step whether to go on, validate or stop.
 
 ``logs/metrics.jsonl`` under the experiment directory gets the JAX
 runner's records (train, train_avg, val, val_avg, finetune), and train and
@@ -65,18 +71,24 @@ import torch
 import torch.distributed as dist
 
 from gens_torch.config import Config
-from gens_torch.convert import load_checkpoint, load_params
+from gens_torch.convert import (FINETUNE_MODULES, load_checkpoint,
+                                load_params)
 from gens_torch.data.image_io import magma, write_png
 from gens_torch.mesh.clean import clean_mesh
 from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 from gens_torch.mesh.ply import apply_transform, write_ply
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.renderer import Scene
-from gens_torch.parallel.distributed import (RankLayout, allreduce_host,
+from gens_torch.parallel.distributed import (RankLayout, ValGroup,
+                                             allreduce_host,
                                              allreduce_host_sums, barrier,
+                                             broadcast_ints,
+                                             broadcast_tensors,
                                              is_main_process, make_layout,
-                                             process_count, process_index,
-                                             rank_seed)
+                                             process_count, rank_seed,
+                                             val_groups)
+from gens_torch.parallel.render_split import (RAY_KEYS, broadcast_scene,
+                                              split_render)
 from gens_torch.parallel.sharded import ShardedTrainStep
 from gens_torch.train.checkpoint import (latest_checkpoint,
                                          load_finetune_checkpoint,
@@ -165,6 +177,10 @@ def _float_arrays(raw: Dict) -> Dict[str, torch.Tensor]:
             if isinstance(v, np.ndarray) and v.dtype == np.float32}
 
 
+# the finetune's control messages from rank 0, one a step: [code, step]
+FT_STEP, FT_VALIDATE, FT_DONE, FT_FAILED = range(4)
+
+
 class Runner:
     # the validation metrics, merged over the ranks as [count, Σ metric…]
     VAL_METRIC_KEYS = ("psnr", "color_loss", "render_depth_loss",
@@ -188,13 +204,16 @@ class Runner:
             fd = cfg.finetune_dataset
             self.exp_dir = os.path.join(self.exp_dir, fd.scene[0],
                                         f"view{fd.ref_view[0]}")
-        os.makedirs(self.exp_dir, exist_ok=True)
+        if self.main:
+            os.makedirs(self.exp_dir, exist_ok=True)
         self.logger = MetricsLogger(
             os.path.join(self.exp_dir, "logs") if self.main else None)
         if cfg.mode in ("train", "finetune") and self.main:
             self._backup_code()
         # seconds and rates of the last validate() call, per scene
         self.stats = []
+        # the validation groups, by (world, number of scenes)
+        self._val_groups: Dict[Tuple[int, int], ValGroup] = {}
         # per training / finetune step: step, seconds and metrics
         self.train_stats = []
         self.finetune_stats = []
@@ -425,15 +444,38 @@ class Runner:
         features and MLPs are restored; the step count and the optimizer
         state are not, as in JAX). Returns the mean metrics of the run;
         ``finetune_stats`` holds the per-step ones, ``init_volumes_s`` the
-        volume build's seconds and ``ft_step`` the :class:`FinetuneStep`."""
+        volume build's seconds and ``ft_step`` the :class:`FinetuneStep`.
+        Under several ranks rank 0 runs the finetune (its draws and files
+        are the one-process run's) and every rank calls this: the others
+        load the checkpoint's modules, split each validation's render with
+        rank 0 and return rank 0's means."""
         if not resume:
             raise ValueError("finetune needs a checkpoint (--resume)")
-        if process_count() > 1:
-            raise ValueError("finetune runs in one process")
-        cfg, tc = self.cfg, self.cfg.train
-        dataset = get_dataset(cfg.finetune_dataset, "finetune", self.rng)
         payload = load_checkpoint(resume)
         self.init_volumes_s = None
+        if not self.main:
+            return self._finetune_follow(payload)
+        self._ft_validating = False
+        try:
+            means = self._finetune_lead(payload)
+        except BaseException:
+            # the others wait for a control message, unless they are in a
+            # validation's collectives, which this process's exit breaks
+            if process_count() > 1 and not self._ft_validating:
+                try:
+                    broadcast_ints([FT_FAILED, -1])
+                except RuntimeError:  # the others are gone already
+                    pass
+            raise
+        if process_count() > 1:
+            broadcast_ints([FT_DONE, -1])
+            dist.broadcast_object_list([means], src=0)
+        return means
+
+    def _finetune_lead(self, payload) -> Dict[str, float]:
+        """The finetune's steps, checkpoints and validations (rank 0)."""
+        cfg, tc = self.cfg, self.cfg.train
+        dataset = get_dataset(cfg.finetune_dataset, "finetune", self.rng)
         if "volumes" in payload["params"]:
             _, arrays = load_finetune_checkpoint(self.model, payload)
             volumes, masks, features = (
@@ -454,6 +496,8 @@ class Runner:
         avg = DictAverageMeter()
         perm = self.rng.permutation(dataset.num_views)
         for step in range(tc.epochs):
+            if process_count() > 1:
+                broadcast_ints([FT_STEP, step])
             vid = int(perm[step % len(perm)])
             raw = dataset.get_random_rays(vid)
             inputs = self._tensors(raw)
@@ -483,26 +527,64 @@ class Runner:
                     self.model, step_fn.volumes, step_fn.mask_volumes,
                     step_fn.features)
             if (step + 1) % tc.val_freq == 0 or last:
+                if process_count() > 1:
+                    broadcast_ints([FT_VALIDATE, step])
+                self._ft_validating = True
                 self._finetune_validate(step_fn, dataset, step)
+                self._ft_validating = False
         return avg.avg_data
 
+    def _finetune_follow(self, payload) -> Dict[str, float]:
+        """A rank other than 0 in a finetune: the checkpoint's modules
+        (rank 0 sends the finetuned ones at each validation), then rank 0's
+        messages until it is done."""
+        if "volumes" in payload["params"]:
+            load_finetune_checkpoint(self.model, payload)
+        else:
+            load_params(self.model, payload)
+        while True:
+            code, step = broadcast_ints([0, 0])
+            if code == FT_VALIDATE:
+                self._finetune_validate(None, None, step)
+            elif code == FT_DONE:
+                means = [None]
+                dist.broadcast_object_list(means, src=0)
+                return means[0]
+            elif code == FT_FAILED:
+                raise RuntimeError("rank 0 failed in the finetune")
+
     @torch.no_grad()
-    def _finetune_validate(self, step_fn: FinetuneStep, dataset, step: int
-                           ) -> None:
+    def _finetune_validate(self, step_fn: Optional[FinetuneStep], dataset,
+                           step: int) -> None:
         """K3 mesh of the finetuned volumes and the chunked render of view
         0's val grid; appends the call's seconds and counts to
-        ``finetune_stats``."""
-        raw = dataset.get_rays_at(0)
-        inputs = self._tensors(raw)
-        view_ids = torch.from_numpy(raw["view_ids"]).to(self.device)
-        feats = [f.index_select(0, view_ids) for f in step_fn.features]
-        scene = Scene(volumes=[v.detach() for v in step_fn.volumes],
-                      mask_volumes=step_fn.mask_volumes, features=feats,
-                      match_features=feats, imgs=inputs["imgs"],
-                      intrs=inputs["intrs"], c2ws=inputs["c2ws"])
-        self.last_scene = scene
+        ``finetune_stats``. Under several ranks every rank calls it (the
+        others with no ``step_fn`` and ``dataset``): rank 0 sends the
+        finetuned sdf, blending and variance modules, the scene and the
+        rays, and the render splits over the world."""
+        group = None
+        if process_count() > 1:
+            group = self._val_group(1)
+            params = [t for top in FINETUNE_MODULES
+                      for t in getattr(self.model, top).state_dict().values()]
+            got, _, _ = broadcast_tensors(
+                params if group.is_leader else None, None, group,
+                self.device)
+            if not group.is_leader:
+                for t, v in zip(params, got):
+                    t.copy_(v)
+        scene = raw = inputs = None
+        if step_fn is not None:
+            raw = dataset.get_rays_at(0)
+            inputs = self._tensors(raw)
+            view_ids = torch.from_numpy(raw["view_ids"]).to(self.device)
+            feats = [f.index_select(0, view_ids) for f in step_fn.features]
+            scene = Scene(volumes=[v.detach() for v in step_fn.volumes],
+                          mask_volumes=step_fn.mask_volumes, features=feats,
+                          match_features=feats, imgs=inputs["imgs"],
+                          intrs=inputs["intrs"], c2ws=inputs["c2ws"])
         st, _ = self._mesh_and_render(scene, raw, inputs, f"step{step}",
-                                      f"ft{step}")
+                                      f"ft{step}", group=group)
         self.finetune_stats.append({"val_step": step, **st})
 
     def _sync(self):
@@ -512,56 +594,59 @@ class Runner:
     def _tensors(self, raw: Dict) -> Dict[str, torch.Tensor]:
         return {k: v.to(self.device) for k, v in _float_arrays(raw).items()}
 
-    def render_chunked(self, scene: Scene, inputs, chunk: int = 512
-                       ) -> Dict[str, np.ndarray]:
-        """Chunked full-image render at a fixed chunk size (the last chunk
-        is padded with copies of the last ray)."""
-        rays_o, rays_d = inputs["rays_o"], inputs["rays_d"]
-        n = rays_o.shape[0]
-        pad = (-n) % chunk
-        ro = torch.cat([rays_o, rays_o[-1:].expand(pad, 3)])
-        rd = torch.cat([rays_d, rays_d[-1:].expand(pad, 3)])
-        keys = ("color_fine", "normal", "sdf_depth", "render_depth")
-        outs = {k: [] for k in keys}
-        for i in range(0, ro.shape[0], chunk):
-            out = self.model.renderer.render(
-                ro[i:i + chunk], rd[i:i + chunk], inputs["near"],
-                inputs["far"], scene, cos_anneal_ratio=1.0)
-            # weighted normal restricted to the unit sphere
-            out["normal"] = torch.sum(
-                out["gradients"] * out["weights"][..., None]
-                * out["inside_sphere"][..., None], dim=1)
-            for k in keys:
-                outs[k].append(out[k].float())
-        return {k: torch.cat(v)[:n].cpu().numpy() for k, v in outs.items()}
+    def _val_group(self, n_scenes: int) -> ValGroup:
+        """This rank's validation group for ``n_scenes`` scenes, built on
+        first use (collective then)."""
+        key = (process_count(), n_scenes)
+        if key not in self._val_groups:
+            self._val_groups[key] = val_groups(n_scenes)
+        return self._val_groups[key]
+
+    def render_chunked(self, scene: Scene, inputs, chunk: int = 512,
+                       group: Optional[ValGroup] = None
+                       ) -> Optional[Dict[str, np.ndarray]]:
+        """Chunked full-image render at a fixed chunk size (the rays padded
+        with copies of the last ray); with a ``group`` of several ranks
+        this rank's share of the chunks, the whole render returned on the
+        leader and None on the others."""
+        return split_render(self.model.renderer, scene, inputs, chunk,
+                            group)[0]
 
     @torch.no_grad()
     def validate(self, epoch: int = 0) -> Dict[str, float]:
         """Per scene: build, mesh, render, metrics. Records per-scene
         seconds and counts in ``self.stats``, the last scene and its SDF
         grid in ``last_scene`` / ``last_sdf_grid``; returns mean metrics.
-        Several ranks: rank r takes scenes r, r + world, …, and the means
-        are over every rank's scenes (collective: every rank calls it)."""
+        Several ranks (collective: every rank calls it): the scenes go to
+        the groups of ``val_partition``; each rank records its own render
+        seconds and rays, the leader also the mesh and the metrics, and
+        the means are over every leader's scenes."""
         cfg = self.cfg
         dataset = get_dataset(cfg.val_dataset, "val", self.rng)
+        group = self._val_group(len(dataset))
         self.stats = []
         avg = DictAverageMeter()
-        for idx in range(process_index(), len(dataset), process_count()):
-            raw = dataset[idx]
-            inputs = self._tensors(raw)
-            st = {"scene": raw["scene"]}
-            self._sync()
-            t0 = time.perf_counter()
-            scene = self.model.build_scene(inputs["imgs"], inputs["intrs"],
-                                           inputs["c2ws"])
-            self._sync()
-            st["build_scene_s"] = time.perf_counter() - t0
-            self.last_scene = scene
-            h, w = int(raw["hw"][0]), int(raw["hw"][1])
-            mesh_st, rend = self._mesh_and_render(scene, raw, inputs,
-                                                  f"epoch{epoch}", epoch,
-                                                  clean=cfg.clean_mesh)
+        for idx in group.scenes:
+            scene = raw = inputs = None
+            st = {}
+            if group.is_leader:
+                raw = dataset[idx]
+                inputs = self._tensors(raw)
+                st["scene"] = raw["scene"]
+                self._sync()
+                t0 = time.perf_counter()
+                scene = self.model.build_scene(
+                    inputs["imgs"], inputs["intrs"], inputs["c2ws"])
+                self._sync()
+                st["build_scene_s"] = time.perf_counter() - t0
+            mesh_st, rend = self._mesh_and_render(
+                scene, raw, inputs, f"epoch{epoch}", epoch,
+                clean=cfg.clean_mesh, group=group)
             st.update(mesh_st)
+            if raw is None:
+                self.stats.append(st)
+                continue
+            h, w = int(raw["hw"][0]), int(raw["hw"][1])
             scalars = {k: st[k] for k in ("psnr", "color_loss")}
             depth_ref = subsample_to_val_grid(np.asarray(raw["depth_ref"]),
                                               h, w)
@@ -581,16 +666,61 @@ class Runner:
         self.logger.log("val_avg", means, epoch)
         return means
 
-    def _mesh_and_render(self, scene: Scene, raw: Dict, inputs, name: str,
-                         tag, clean: bool = False
-                         ) -> Tuple[Dict, Dict[str, np.ndarray]]:
+    def _mesh_and_render(self, scene: Optional[Scene], raw: Optional[Dict],
+                         inputs, name: str, tag, clean: bool = False,
+                         group: Optional[ValGroup] = None
+                         ) -> Tuple[Dict, Optional[Dict[str, np.ndarray]]]:
         """Extract the scene's mesh through K3, clean it by ``raw``'s masks
         and cameras when ``clean`` (as the JAX ``Runner.validate`` does; its
         finetune validation does not), write it as
         ``meshes/<scene>_<name>.ply``, render ``inputs``' rays in chunks and
         save the images under ``tag``. Returns (seconds, counts, PSNR and
         colour L1 against ``raw["color"]``; the render). The SDF grid is
-        kept in ``last_sdf_grid``."""
+        kept in ``last_sdf_grid``, the render in ``last_render``. With a
+        ``group`` of several ranks every member calls it: the leader (the
+        one with ``scene``, ``raw`` and ``inputs``) broadcasts the scene
+        and the rays, the render splits over the group, and only the
+        leader meshes, writes and scores; the others get (their render
+        seconds, rays and transfer counts; None)."""
+        st = {"group_size": 1 if group is None else group.size}
+        rays = None if inputs is None else {k: inputs[k] for k in RAY_KEYS}
+        if group is not None and group.size > 1:
+            self._sync()
+            t0 = time.perf_counter()
+            scene, rays, scene_name, st["broadcast_bytes"] = \
+                broadcast_scene(scene, rays, None if raw is None
+                                else raw["scene"], group, self.device)
+            self._sync()
+            st["broadcast_s"] = time.perf_counter() - t0
+            st["scene"] = scene_name
+            if group.is_leader:
+                print(f"[val] {scene_name}: broadcast "
+                      f"{st['broadcast_bytes']} B to {group.size - 1} "
+                      f"rank(s) in {st['broadcast_s']:.3f} s", flush=True)
+        self.last_scene = scene
+        if raw is not None:
+            st.update(self._mesh(scene, raw, name, clean))
+        rend, render_st = split_render(self.model.renderer, scene, rays,
+                                       group=group)
+        st.update(render_st)
+        st["rays_per_s"] = st["rays"] / st["render_s"]
+        if raw is None:
+            return st, None
+        self.last_render = rend
+        st["render_finite"] = bool(all(np.isfinite(v).all()
+                                       for v in rend.values()))
+        h, w = int(raw["hw"][0]), int(raw["hw"][1])
+        self._save_val_images(raw, rend, (h, w), tag)
+        color = rend["color_fine"].reshape(h, w, 3)
+        gt = np.asarray(raw["color"]).reshape(h, w, 3)
+        mse = float(((color - gt) ** 2).mean())
+        st["psnr"] = 20.0 * np.log10(1.0 / np.sqrt(mse + 1e-12))
+        st["color_loss"] = float(np.abs(color - gt).mean())
+        return st, rend
+
+    def _mesh(self, scene: Scene, raw: Dict, name: str, clean: bool
+              ) -> Dict:
+        """The mesh of ``_mesh_and_render``; its seconds and counts."""
         st = {}
         t0 = time.perf_counter()
         sdf_fn = self.model.renderer.sdf_fn_for_extraction(scene.volumes)
@@ -616,23 +746,7 @@ class Runner:
         os.makedirs(mesh_dir, exist_ok=True)
         write_ply(os.path.join(mesh_dir, f"{raw['scene']}_{name}.ply"),
                   verts, tris)
-
-        self._sync()
-        t0 = time.perf_counter()
-        rend = self.render_chunked(scene, inputs)
-        st["render_s"] = time.perf_counter() - t0
-        st["rays"] = int(inputs["rays_o"].shape[0])
-        st["rays_per_s"] = st["rays"] / st["render_s"]
-        st["render_finite"] = bool(all(np.isfinite(v).all()
-                                       for v in rend.values()))
-        h, w = int(raw["hw"][0]), int(raw["hw"][1])
-        self._save_val_images(raw, rend, (h, w), tag)
-        color = rend["color_fine"].reshape(h, w, 3)
-        gt = np.asarray(raw["color"]).reshape(h, w, 3)
-        mse = float(((color - gt) ** 2).mean())
-        st["psnr"] = 20.0 * np.log10(1.0 / np.sqrt(mse + 1e-12))
-        st["color_loss"] = float(np.abs(color - gt).mean())
-        return st, rend
+        return st
 
     def _save_val_images(self, raw, rend, hw, tag):
         h, w = hw
