@@ -86,8 +86,14 @@ the script starts them itself.)
    576x768). confs/dtu.yaml trains 3 steps (ref views 0-2; K1 25 a step,
    2048 pseudo points a step; per step the wait on the prefetch queue and
    an item's decode time), then ``--resume auto`` trains epoch 1 from the
-   first run's checkpoint, with the config's validation at its end (K3
-   512); logs/metrics.jsonl holds the train and train_avg records.
+   first run's checkpoint, its optimizer state read in the port's numpy
+   form, with the config's validation at its end (K3 512);
+   logs/metrics.jsonl holds the train and train_avg records. A JAX-form
+   checkpoint of a seeded model at confs/dtu.yaml's width, its Adam state
+   pickled under optax's class paths (written without optax), resumes
+   ``--mode train`` for one step: the state read in its optax form, K1
+   25, and the step's first moments b1 · mu + (1 - b1) · g of the carried
+   mu within 1e-5 relative.
    ``--mode val`` on the trained artifact (K3 512, depth PNGs in magma);
    confs/dtu_finetune.yaml, 6 steps under ``kernel2f`` (K2 15, all in the
    volume build; K3 512 at its validation); a small DTU training step GPU
@@ -133,7 +139,21 @@ the script starts them itself.)
    counts, peak memory, the check's seconds. Two ranks on one card
    time-slice it: their times are no scaling measurement. Every group of
    ranks has a timeout, and a failed rank fails the script.
-13. Prints the card line, the kernels JSON line and, last, the ok line.
+13. Phase a of the quality protocol, through ``gens_torch.eval.quality_train
+   --phase a --agg-packed pallas --bf16`` (5 views at 128x128, 512 rays, a
+   64³…4³ cascade, 32+32 samples) for 50 steps from a seeded init, with its
+   evaluation (3 views, a 192³ mesh). Counters zeroed just before and read
+   just after; K1 must have launched 25 times a step (5 scales x 5 views:
+   bf16 rounding at 64, 32 and 16, the exact f32 adjoint at 8 and 4), K3
+   27 times at the evaluation. Every curve row finite and the step-25
+   row's PSNR at least 5 dB above the first. Then K1 against its plain
+   version on the 25 splats of the first step, timed for K1's total in a
+   step, and one more step of the trained model under the profiler; then
+   phase a's first forward ((a-table), f32, seed 0) at the script's widths
+   on the GPU against the CPU: every loss term within 1e-3 relative, each
+   term's gradient of each module within 2e-2, the MFC term's gradient of
+   the SDF reported (its zero-crossing root is ill-conditioned).
+14. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
@@ -350,6 +370,10 @@ def main() -> int:
     # -- several ranks, through the entry point ----------------------------
     parallel_path(gens_main, dev,
                   os.path.join(REPO, "build", "chip_smoke_dtu"))
+    torch.cuda.empty_cache()
+
+    # -- phase a of the quality protocol, through its entry point ----------
+    quality_train_path()
 
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
@@ -1192,6 +1216,178 @@ def quality_path() -> None:
                              f"{QUALITY_PSNR_ATOL} dB of {ref_psnr}")
 
 
+QUALITY_TRAIN_STEPS = 50
+QUALITY_TRAIN_DIR = os.path.join(REPO, "build", "chip_smoke_quality_train")
+# phase a over 50 steps: the step-25 row's PSNR above the first row's by
+# at least this (the JAX record's 1,500-step run: 19.3 -> 34.6 dB by step 25)
+QUALITY_TRAIN_RISE_DB = 5.0
+
+
+def quality_train_path() -> None:
+    """``gens_torch.eval.quality_train --phase a`` in the r05 stage-2
+    configuration (``--agg-packed pallas --bf16``: 5 views at 128x128, 512
+    rays, a 64³…4³ cascade, 32+32 samples) for 50 steps from a seeded init,
+    then its evaluation (3 views, a 192³ mesh). K1 launches 25 times a step
+    (5 scales x 5 views: in the bf16 rounding at 64, 32 and 16, where the
+    JAX Pallas splat runs, and as the exact f32 adjoint at 8 and 4, where
+    the JAX function falls back to the table's adjoint) and K3 27 times at
+    the evaluation, nothing else; every curve row finite; the step-25 row's
+    PSNR 5 dB or more above the first row's."""
+    from gens_torch.convert import load_params
+    from gens_torch.eval import quality_train
+    from gens_torch.eval.quality import scene_params
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.ops import splat as k1
+    from gens_torch.train.step import TrainStep
+
+    shutil.rmtree(QUALITY_TRAIN_DIR, ignore_errors=True)
+    out = os.path.join(QUALITY_TRAIN_DIR, "quality_a_pallas.json")
+    ckpt = os.path.join(QUALITY_TRAIN_DIR, "overfit.ckpt")
+    flags = ["--phase", "a", "--steps-a", str(QUALITY_TRAIN_STEPS),
+             "--agg-packed", "pallas", "--bf16"]
+    k1_step = 5 * 5
+    # the 25 splats of the first step, copied to the host
+    captured = []
+
+    def capture(xy, ct, hw, mm_dtype, dim):
+        if len(captured) < k1_step:
+            captured.append((xy.cpu(), ct.cpu(), hw, mm_dtype, dim))
+
+    k1.BilerpAggSplat.on_backward = capture
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        res = quality_train.main(flags + [
+            "--out", out, "--runs-dir", QUALITY_TRAIN_DIR,
+            "--ckpt-out", ckpt])
+    finally:
+        k1.BilerpAggSplat.on_backward = None
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "K1": k1_step * QUALITY_TRAIN_STEPS,
+                      "K3": (192 // 64) ** 3}, counts
+    assert res["overfit_k1_launches_per_step"] == k1_step, res
+    assert res["overfit_k3_launches_eval"] == (192 // 64) ** 3, res
+    curve = res["overfit_curve"]
+    assert [r["step"] for r in curve] == [0, 25, 49], curve
+    bad = [(r["step"], k) for r in curve for k, v in r.items()
+           if not np.isfinite(v)]
+    assert not bad, bad
+    rise = curve[1]["psnr"] - curve[0]["psnr"]
+    assert np.isfinite(res["overfit_psnr"]), res["overfit_psnr"]
+
+    # K1 against its plain version on the step's 25 splats; their total
+    assert sorted((c[4], c[3]) for c in captured) == sorted(
+        [(d, "bfloat16" if d >= 16 else "float32")
+         for d in (64, 32, 16, 8, 4)] * 5), [(c[4], c[3]) for c in captured]
+    k1_ms, k1_err = 0.0, 0.0
+    for xy, ct, hw, mm, dim in captured:
+        xy, ct = xy.cuda(), ct.cuda()
+        got = k1.splat_bilinear(xy, ct, hw, mm, "fused_u", dim)
+        ref = k1.splat_plain(xy, ct, hw, mm, "fused_u")
+        err = float((got - ref).abs().max())
+        assert err <= K1_TOL * float(ref.abs().max()), (hw, dim, err)
+        k1_err = max(k1_err, err)
+        k1_ms += cuda_ms(lambda: k1.splat_bilinear(xy, ct, hw, mm,
+                                                   "fused_u", dim), 20)
+    # one more step of the trained model, under the profiler
+    cfg = quality_train.build_cfg(quality_train.parse_args(flags),
+                                  QUALITY_TRAIN_STEPS)
+    model = GenSModel(cfg.model).cuda()
+    load_params(model, ckpt)
+    batches, _ = quality_train.pregen_batches(
+        scene_params(0), 1, False, 0, (128, 128), 512, 5, 0.5,
+        torch.device("cuda"))
+    step = TrainStep(model, cfg, steps_per_epoch=1)
+
+    def one_step():
+        step(batches[0], 1.0, generator=torch.Generator().manual_seed(0))
+
+    one_step()
+    prof = profile_step(one_step)
+    del model, step, batches
+    first_step = check_phase_a_step()
+    print("quality train path: " + json.dumps({
+        "wall_s": wall, "steps": QUALITY_TRAIN_STEPS,
+        "ms_per_step": res["overfit_ms_per_step"],
+        "first_step_s": res["overfit_compile_s"],
+        "train_peak_mem_gb": res["overfit_train_peak_mem_gb"],
+        "k1_per_step": res["overfit_k1_launches_per_step"],
+        "k3_eval": res["overfit_k3_launches_eval"],
+        "psnr_rows": [r["psnr"] for r in curve],
+        "eikonal_rows": [r["eikonal_loss"] for r in curve],
+        "psnr_rise_0_25_db": rise,
+        "k1_ms_per_step": k1_ms, "k1_max_abs_err": k1_err,
+        "k1_dims": sorted({c[4] for c in captured}, reverse=True),
+        "profile": prof, "first_step_gpu_vs_cpu": first_step,
+        "eval": {k: res[f"overfit_{k}"] for k in (
+            "psnr", "acc_mean", "acc_p50", "render_s", "mesh_grid_s")}}),
+        flush=True)
+    assert rise >= QUALITY_TRAIN_RISE_DB, (
+        f"PSNR rose {rise:.2f} dB from step 0 to 25, under "
+        f"{QUALITY_TRAIN_RISE_DB} dB")
+
+
+PHASE_A_TERMS = ("color_loss", "eikonal_loss", "smooth_loss", "sparse_loss",
+                 "mfc_loss", "tv_loss")
+
+
+def check_phase_a_step() -> dict:
+    """Phase a's first training forward at the script's widths, (a-table)
+    in f32 from the seed-0 init, on the GPU and on the CPU with the same
+    batch and draws: every loss term within TRAIN_LOSS_RTOL, and each
+    term's gradient of each module within TRAIN_GRAD_TOL, except the MFC
+    term's gradient of the SDF, which is reported: it reaches the SDF
+    through the zero-crossing root z = (s1 z2 - s2 z1) / (s1 - s2), whose
+    1 / (s1 - s2)² amplifies the devices' rounding on rays that graze
+    the surface."""
+    from gens_torch import losses
+    from gens_torch.eval import quality_train
+    from gens_torch.eval.quality import scene_params
+    from gens_torch.models.gens import GenSModel
+
+    cfg = quality_train.build_cfg(quality_train.parse_args([]), 1500)
+    torch.manual_seed(0)
+    models = {"cpu": GenSModel(cfg.model)}
+    models["gpu"] = GenSModel(cfg.model).cuda()
+    models["gpu"].load_state_dict(models["cpu"].state_dict())
+    terms, grads = {}, {}
+    for side, d in (("cpu", torch.device("cpu")),
+                    ("gpu", torch.device("cuda"))):
+        model = models[side].train()
+        batches, _ = quality_train.pregen_batches(
+            scene_params(0), 1, False, 0, (128, 128), 512, 5, 0.5, d)
+        out = model.forward_train(batches[0], 0.0, False,
+                                  generator=torch.Generator().manual_seed(0))
+        lo = losses.compute_losses(out, batches[0], cfg.train.loss)
+        terms[side] = {t: float(lo[t].detach()) for t in PHASE_A_TERMS}
+        grads[side] = {}
+        for t in PHASE_A_TERMS:
+            model.zero_grad(set_to_none=True)
+            lo[t].backward(retain_graph=True)
+            grads[side][t] = {k: p.grad.detach().cpu()
+                              for k, p in model.named_parameters()
+                              if p.grad is not None}
+    loss_err = {t: abs(terms["gpu"][t] - terms["cpu"][t])
+                / abs(terms["cpu"][t]) for t in PHASE_A_TERMS}
+    grad_err = {}
+    for t in PHASE_A_TERMS:
+        for top in ("feature", "reg", "sdf", "blending"):
+            keys = [k for k in grads["cpu"][t] if k.split(".")[0] == top]
+            if not keys:
+                continue
+            a = torch.cat([grads["cpu"][t][k].reshape(-1) for k in keys])
+            b = torch.cat([grads["gpu"][t][k].reshape(-1) for k in keys])
+            if float(a.norm()) > 0:
+                grad_err[f"{t}/{top}"] = float((a - b).norm() / a.norm())
+    assert all(v <= TRAIN_LOSS_RTOL for v in loss_err.values()), loss_err
+    bad = {k: v for k, v in grad_err.items()
+           if v > TRAIN_GRAD_TOL and k != "mfc_loss/sdf"}
+    assert not bad, bad
+    return {"loss_rel_err": loss_err, "grad_rel_err": grad_err}
+
+
 def gather_probe_path() -> dict:
     """``gens_torch.probes.gather --iters 2``: every row of both TPU probe
     scripts; returns P1-P3's launches in it (each kernel row: one check
@@ -1471,6 +1667,8 @@ def dtu_path(gens_main, dev) -> None:
             for k in (f"data_dir={tree}", f'scene=["{DTU_SCAN}"]')]
     dtu_train_path(gens_main, data, tree_s)
     torch.cuda.empty_cache()
+    dtu_jax_resume_path(gens_main, data)
+    torch.cuda.empty_cache()
     dtu_val_path(gens_main, data)
     torch.cuda.empty_cache()
     dtu_finetune_path(gens_main, tree)
@@ -1530,6 +1728,8 @@ def dtu_train_path(gens_main, data, tree_s: float) -> None:
     assert second_counts == {**zeros, "K1": k1_run, "K3": 512}, \
         second_counts
     assert second.start_epoch == 1, second.start_epoch
+    # the resumed run read the port's checkpoint, optimizer state as numpy
+    assert (first.opt_state_form, second.opt_state_form) == (None, "numpy")
     assert [s["step"] for s in first.train_stats] == [1, 2, 3]
     assert [s["step"] for s in second.train_stats] == [4, 5, 6]
     assert pseudo_rows == [2048] * 6, pseudo_rows
@@ -1547,11 +1747,141 @@ def dtu_train_path(gens_main, data, tree_s: float) -> None:
         "decode_ms": [s["decode_s"] * 1e3 for s in steps],
         "k1_launches": [first_counts["K1"], second_counts["K1"]],
         "resumed_at_epoch": second.start_epoch,
+        "resumed_opt_state_form": second.opt_state_form,
         "val_in_training": {k: second.stats[0][k] for k in (
             "psnr", "n_tris", "mesh_grid_s", "render_s")},
         "losses": {k: v for k, v in steps[-1].items() if k not in (
             "epoch", "step", "step_s", "data_wait_s", "decode_s")}}),
         flush=True)
+
+
+JAX_STEP = 3
+# the optax class paths of a gens_tpu training checkpoint (optax 0.2.x)
+OPTAX_PATHS = ("optax.transforms._combining.PartitionState",
+               "optax.transforms._masking.MaskedState",
+               "optax.transforms._masking.MaskedNode",
+               "optax._src.transform.ScaleByAdamState",
+               "optax._src.transform.ScaleByScheduleState",
+               "optax._src.base.EmptyState")
+
+
+def write_jax_checkpoint(path: str, cfg, seed: int) -> dict:
+    """A JAX training checkpoint of a seeded model at ``cfg``'s width: the
+    params in the JAX layout and an optax Adam state after JAX_STEP updates
+    (seeded moments), pickled under optax's class paths (the keys of
+    ``JAX_PICKLE_CLASSES``) as gens_tpu's ``save_checkpoint`` pickles
+    them. optax need not exist: stand-in modules named as optax's exist
+    only while the file is written. Returns {port parameter name:
+    exp_avg} of the moments written."""
+    import collections
+    import pickle
+    import types
+
+    from gens_torch.convert import (JAX_PICKLE_CLASSES, load_checkpoint,
+                                    params_to_jax)
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.train.checkpoint import jax_adam_moments
+    from gens_torch.train.step import GROUPS
+
+    torch.manual_seed(seed)
+    params = params_to_jax(GenSModel(cfg.model).state_dict())
+    fakes, classes = {}, {}
+    for cls_path in OPTAX_PATHS:
+        module, name = cls_path.rsplit(".", 1)
+        cls = collections.namedtuple(name,
+                                     JAX_PICKLE_CLASSES[cls_path]._fields)
+        cls.__module__ = module
+        parts = module.split(".")
+        for i in range(1, len(parts) + 1):
+            fakes.setdefault(".".join(parts[:i]),
+                             types.ModuleType(".".join(parts[:i])))
+        setattr(fakes[module], name, cls)
+        classes[name] = cls
+    rng = np.random.RandomState(seed)
+
+    def draw(tree, second):
+        if isinstance(tree, dict):
+            return {k: draw(v, second) for k, v in tree.items()}
+        x = np.asarray(rng.randn(*tree.shape))
+        return (np.abs(x) * 1e-6 if second else x * 1e-3).astype(np.float32)
+
+    def moments(label, second):
+        return {top: draw(sub, second) if GROUPS.get(top) == label
+                else classes["MaskedNode"]() for top, sub in params.items()}
+
+    count = np.asarray(JAX_STEP, np.int32)
+    inner = {label: classes["MaskedState"]((
+        classes["ScaleByAdamState"](count, moments(label, False),
+                                    moments(label, True)),
+        classes["ScaleByScheduleState"](count)))
+        for label in ("mlp", "variance", "feat")}
+    inner["frozen"] = classes["MaskedState"](classes["EmptyState"]())
+    opt_state = classes["PartitionState"](inner)
+    saved = {k: sys.modules.get(k) for k in fakes}
+    sys.modules.update(fakes)
+    try:
+        data = pickle.dumps({"epoch": 0, "step": JAX_STEP,
+                             "format_version": 2, "params": params,
+                             "opt_state": opt_state}, protocol=4)
+    finally:
+        for k, mod in saved.items():
+            if mod is None:
+                del sys.modules[k]
+            else:
+                sys.modules[k] = mod
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+    return jax_adam_moments(load_checkpoint(path)["opt_state"])[0]
+
+
+def dtu_jax_resume_path(gens_main, data) -> None:
+    """``--mode train --resume`` of a JAX-form checkpoint (optax's Adam
+    state) at confs/dtu.yaml's width, one step (epoch 1 of one item): the
+    optimizer state read in its optax form, K1 25, finite losses, and the
+    step's first moments b1 · mu + (1 - b1) · g of the carried mu."""
+    import importlib.util
+
+    from gens_torch.config import load_config
+
+    exp = os.path.join(REPO, "build", "chip_smoke_jax_resume")
+    shutil.rmtree(exp, ignore_errors=True)
+    conf = os.path.join(REPO, "confs", "dtu.yaml")
+    ckpt = os.path.join(exp, "jax", "model_000.ckpt")
+    mu = write_jax_checkpoint(ckpt, load_config(conf), seed=3)
+    zero_counts()
+    t0 = time.perf_counter()
+    runner = gens_main(["--conf", conf, "--mode", "train", "--resume", ckpt,
+                        "--set", f"base_exp_dir={exp}",
+                        "train_dataset.ref_view=[0]", "train.epochs=2",
+                        "train.val_freq=100"] + data)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "K1": 25}, counts
+    assert runner.opt_state_form == "optax", runner.opt_state_form
+    (st,) = runner.train_stats
+    assert (st["epoch"], st["step"]) == (1, JAX_STEP + 1), st
+    bad = [k for k, v in st.items() if not np.isfinite(v)]
+    assert not bad, bad
+    opt = runner.step_fn.optimizer
+    err, n = 0.0, 0
+    for name, p in runner.model.named_parameters():
+        if name.startswith("match_feature"):
+            continue
+        state = opt.state[p]
+        assert float(state["step"]) == JAX_STEP + 1, name
+        want = 0.9 * mu[name].to(p.device) + 0.1 * p.grad
+        err = max(err, float((state["exp_avg"] - want).abs().max()
+                             / want.abs().max().clamp_min(1e-30)))
+        n += 1
+    assert n == len(mu), (n, len(mu))
+    print("dtu jax resume path: " + json.dumps({
+        "wall_s": wall, "opt_state_form": runner.opt_state_form,
+        "optax_importable": importlib.util.find_spec("optax") is not None,
+        "step": st["step"], "step_ms": st["step_s"] * 1e3,
+        "k1_launches": counts["K1"], "params": n,
+        "exp_avg_rel_err": err, "loss": st["loss"]}), flush=True)
+    assert err <= 1e-5, err
 
 
 def dtu_val_path(gens_main, data) -> None:

@@ -1,8 +1,13 @@
 """Parameter bridge from the JAX package's checkpoints to the port's modules.
 
 * :func:`load_checkpoint` reads the JAX pickle checkpoint format (a pickled
-  dict of numpy arrays: ``epoch``, ``step``, ``format_version``, ``params``)
-  with plain ``pickle``. Orbax checkpoint directories are not readable
+  dict of numpy arrays: ``epoch``, ``step``, ``format_version``, ``params``
+  and, in a training checkpoint, optax's ``opt_state``) without jax, flax
+  or optax: the optax classes that such a pickle names
+  (:data:`JAX_PICKLE_CLASSES`) load as plain stand-ins whose fields are the
+  numpy arrays, and any other class of jax, flax or optax raises
+  :class:`UnknownJaxClassError`. Everything else resolves as plain
+  ``pickle`` resolves it. Orbax checkpoint directories are not readable
   without orbax and raise.
 * :func:`params_from_jax` turns a JAX parameter tree (nested dicts of numpy
   arrays, any float dtype) into a ``GenSModel`` state dict in f32.
@@ -32,6 +37,7 @@ Only load checkpoints this project wrote: unpickling runs code.
 
 from __future__ import annotations
 
+import collections
 import os
 import pickle
 import re
@@ -40,15 +46,59 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+# -- the JAX-side classes of a pickled checkpoint ------------------------------
+
+# optax's states are NamedTuples; a pickle rebuilds one as cls(*fields)
+PartitionState = collections.namedtuple("PartitionState", "inner_states")
+MaskedState = collections.namedtuple("MaskedState", "inner_state")
+MaskedNode = collections.namedtuple("MaskedNode", "")
+ScaleByAdamState = collections.namedtuple("ScaleByAdamState",
+                                          "count mu nu")
+ScaleByScheduleState = collections.namedtuple("ScaleByScheduleState",
+                                              "count")
+EmptyState = collections.namedtuple("EmptyState", "")
+
+
+# "module.Class" -> stand-in: the classes of a gens_tpu training
+# checkpoint's optax state (optax 0.2)
+JAX_PICKLE_CLASSES = {
+    "optax.transforms._combining.PartitionState": PartitionState,
+    "optax.transforms._masking.MaskedState": MaskedState,
+    "optax.transforms._masking.MaskedNode": MaskedNode,
+    "optax._src.transform.ScaleByAdamState": ScaleByAdamState,
+    "optax._src.transform.ScaleByScheduleState": ScaleByScheduleState,
+    "optax._src.base.EmptyState": EmptyState,
+}
+_JAX_SIDE = ("jax", "jaxlib", "flax", "optax", "chex", "orbax")
+
+
+class UnknownJaxClassError(pickle.UnpicklingError):
+    """A checkpoint names a class of jax, flax or optax that
+    :data:`JAX_PICKLE_CLASSES` has no stand-in for."""
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        path = f"{module}.{name}"
+        if path in JAX_PICKLE_CLASSES:
+            return JAX_PICKLE_CLASSES[path]
+        if module.split(".")[0] in _JAX_SIDE:
+            raise UnknownJaxClassError(
+                f"the checkpoint names {path}, which has no stand-in in "
+                "gens_torch.convert.JAX_PICKLE_CLASSES")
+        return super().find_class(module, name)
+
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a JAX pickle checkpoint; its ``params`` stay numpy arrays."""
+    """Read a JAX (or port) pickle checkpoint; its ``params`` stay numpy
+    arrays, an optax ``opt_state`` comes back as the stand-ins of
+    :data:`JAX_PICKLE_CLASSES`."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is an orbax checkpoint directory; gens_torch reads the "
             "pickle format only (save with use_orbax=False in gens_tpu)")
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        payload = _CheckpointUnpickler(f).load()
     if not isinstance(payload, dict) or "params" not in payload:
         raise ValueError(f"{path} is not a GenS checkpoint (no 'params')")
     payload.setdefault("format_version", 1)

@@ -14,6 +14,9 @@ PSNR logged every ``log_freq`` epochs, checkpoints every ``save_freq`` and
 validation every ``val_freq`` epochs. One worker thread decodes item i+1
 into pinned memory while step i runs (``utils/prefetch.py``). ``--resume
 auto`` continues from the newest good checkpoint (``latest_checkpoint``);
+a resumed run takes the checkpoint's optimizer state in either package's
+form (``train/checkpoint.py::load_optimizer_state``: the port's numpy
+state, or the JAX package's optax Adam state);
 a SIGTERM writes ``preempt.ckpt`` at the next log point or epoch end and
 returns (``utils/preemption.py``); a non-finite loss writes
 ``emergency.ckpt`` and raises.
@@ -92,6 +95,7 @@ from gens_torch.parallel.render_split import (RAY_KEYS, broadcast_scene,
 from gens_torch.parallel.sharded import ShardedTrainStep
 from gens_torch.train.checkpoint import (latest_checkpoint,
                                          load_finetune_checkpoint,
+                                         load_optimizer_state,
                                          save_checkpoint,
                                          save_finetune_checkpoint)
 from gens_torch.train.schedule import cos_anneal_ratio
@@ -326,8 +330,14 @@ class Runner:
             step_fn = ShardedTrainStep(self.model, cfg, steps_per_epoch,
                                        layout, start_step=step)
         self.step_fn = step_fn
+        self.opt_state_form = None
         if payload is not None and payload.get("opt_state") is not None:
-            step_fn.optimizer.load_state_dict(payload["opt_state"])
+            self.opt_state_form = load_optimizer_state(
+                step_fn.optimizer, self.model, payload["opt_state"])
+            if self.main:
+                print(f"[train] resumed the optimizer state ("
+                      f"{self.opt_state_form} form) of {resume} at step "
+                      f"{step}", flush=True)
         means: Dict[str, float] = {}
         preempt = self._preempt_guard()
         try:

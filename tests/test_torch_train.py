@@ -37,7 +37,8 @@ from gens_torch.ops import interp as ti
 from gens_torch.ops import projection as tp
 from gens_torch.ops import sampling as ts
 from gens_torch.train import schedule as tsched
-from gens_torch.train.checkpoint import save_checkpoint
+from gens_torch.train.checkpoint import (load_optimizer_state,
+                                         save_checkpoint)
 from gens_torch.train.step import TrainStep, make_optimizer
 
 from _torch_common import (jax_init_params, scene_numpy, t, tiny_configs,
@@ -436,8 +437,12 @@ def test_checkpoint_round_trip(tmp_path):
     load_params(fresh, path)
     for k, v in tm.state_dict().items():
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
+    # the optimizer state is numpy: the file unpickles without torch
+    leaves = [v for st in payload["opt_state"]["state"].values()
+              for v in st.values()]
+    assert leaves and all(isinstance(v, np.ndarray) for v in leaves)
     opt = TrainStep(fresh, tcfg, 1).optimizer
-    opt.load_state_dict(payload["opt_state"])
+    assert load_optimizer_state(opt, fresh, payload["opt_state"]) == "numpy"
     a, b = opt.state_dict()["state"], step.optimizer.state_dict()["state"]
     assert a.keys() == b.keys()
     for k in a:
