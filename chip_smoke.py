@@ -153,6 +153,18 @@ the script starts them itself.)
    on the GPU against the CPU: every loss term within 1e-3 relative, each
    term's gradient of each module within 2e-2, the MFC term's gradient of
    the SDF reported (its zero-crossing root is ill-conditioned).
+   Phase b, through ``--phase b --n-train-scenes 2 --agg-packed pallas
+   --bf16 --skip-eval`` (the same widths, pseudo-labelled batches of two
+   scenes round-robin) for 50 steps: K1 exactly 25 a step and nothing
+   else, every curve row finite, and one more step of the trained model
+   under the profiler. Phase ft, through ``--phase ft`` from
+   artifacts/quality_gen_r05_sharpen.pkl at the r05 width (480x640, a
+   128³…8³ cascade, 64+64 samples, bf16, 512 rays) for 30 steps: K3 54
+   times (the 192³ meshes of ft_init and ft) and nothing else, every
+   curve row finite, and ft_init's accuracy within 5e-3 relative of the
+   quality phase's held-out score of the same artifact in this process
+   (the same scene's volumes from the same 3 views), and one finetune
+   step from the artifact under the profiler. One line each.
 14. Prints the card line, the kernels JSON line and, last, the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -354,7 +366,7 @@ def main() -> int:
     check_small_finetune(dev)
 
     # -- the quality evaluation, through its entry point --------------------
-    quality_path()
+    heldout = quality_path()
     torch.cuda.empty_cache()
 
     # -- the gather probes, through their entry point ----------------------
@@ -372,8 +384,12 @@ def main() -> int:
                   os.path.join(REPO, "build", "chip_smoke_dtu"))
     torch.cuda.empty_cache()
 
-    # -- phase a of the quality protocol, through its entry point ----------
+    # -- phases a, b and ft of the quality protocol, through the entry point
     quality_train_path()
+    torch.cuda.empty_cache()
+    quality_gen_path()
+    torch.cuda.empty_cache()
+    quality_ft_path(heldout)
 
     kernels = [{
         "name": "sdf_mlp_fused", "route": "cuda",
@@ -1173,10 +1189,11 @@ def check_small_finetune(dev) -> None:
     assert all(e <= TRAIN_GRAD_TOL for e in errs.values()), errs
 
 
-def quality_path() -> None:
+def quality_path() -> dict:
     """``gens_torch.eval.quality`` on the trained artifact, held-out sphere
     only, at the protocol's size; K3 launches 27 times (a 192³ grid in 64³
-    blocks) and nothing else; accuracy and PSNR against the JAX record."""
+    blocks) and nothing else; accuracy and PSNR against the JAX record.
+    Returns the result."""
     from gens_torch.eval import quality
 
     artifact = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
@@ -1214,6 +1231,7 @@ def quality_path() -> None:
     if abs(psnr - ref_psnr) > QUALITY_PSNR_ATOL:
         raise AssertionError(f"held-out PSNR {psnr} is not within "
                              f"{QUALITY_PSNR_ATOL} dB of {ref_psnr}")
+    return res
 
 
 QUALITY_TRAIN_STEPS = 50
@@ -1327,6 +1345,149 @@ def quality_train_path() -> None:
     assert rise >= QUALITY_TRAIN_RISE_DB, (
         f"PSNR rose {rise:.2f} dB from step 0 to 25, under "
         f"{QUALITY_TRAIN_RISE_DB} dB")
+
+
+QUALITY_GEN_STEPS = 50
+QUALITY_FT_STEPS = 30
+# ft_init against the quality phase's held-out score: one process builds
+# the same scene's volumes from the same 3 views and the same params, and
+# a process repeats its render bit for bit
+QUALITY_FT_INIT_RTOL = 5e-3
+
+
+def finite_rows(curve) -> None:
+    bad = [(r["step"], k) for r in curve for k, v in r.items()
+           if not np.isfinite(v)]
+    assert not bad, bad
+
+
+def quality_gen_path() -> None:
+    """``gens_torch.eval.quality_train --phase b`` at phase a's widths under
+    ``--agg-packed pallas --bf16`` on two scenes' pseudo-labelled batches,
+    50 steps from a seeded init, no evaluation: K1 25 times a step and
+    nothing else; every curve row finite."""
+    from gens_torch.eval import quality_train
+
+    out = os.path.join(QUALITY_TRAIN_DIR, "quality_b.json")
+    flags = ["--phase", "b", "--steps-b", str(QUALITY_GEN_STEPS),
+             "--n-train-scenes", "2", "--agg-packed", "pallas", "--bf16",
+             "--skip-eval"]
+    zero_counts()
+    t0 = time.perf_counter()
+    res = quality_train.main(flags + [
+        "--out", out, "--runs-dir", QUALITY_TRAIN_DIR,
+        "--ckpt-out", os.path.join(QUALITY_TRAIN_DIR, "gen.ckpt")])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "K1": 25 * QUALITY_GEN_STEPS}, counts
+    assert res["gen_k1_launches_per_step"] == 25, res
+    assert res["gen_steps_done"] == QUALITY_GEN_STEPS, res
+    curve = res["gen_curve"]
+    assert [r["step"] for r in curve] == [0, 25, 49], curve
+    finite_rows(curve)
+    # one more step of the trained model, under the profiler
+    from gens_torch.convert import load_params
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.train.step import TrainStep
+
+    args = quality_train.parse_args(flags)
+    cfg = quality_train.gen_cfg(args)
+    model = GenSModel(cfg.model).cuda()
+    load_params(model, os.path.join(QUALITY_TRAIN_DIR, "gen.ckpt"))
+    batch = quality_train.gen_batches(args, torch.device("cuda"))[0]
+    step = TrainStep(model, cfg, steps_per_epoch=1)
+
+    def one_step():
+        step(batch, 1.0, generator=torch.Generator().manual_seed(0))
+
+    one_step()
+    prof = profile_step(one_step)
+    del model, step, batch
+    print("quality b path: " + json.dumps({
+        "wall_s": wall, "steps": QUALITY_GEN_STEPS,
+        "ms_per_step": res["gen_ms_per_step"],
+        "first_step_s": res["gen_compile_s"],
+        "train_peak_mem_gb": res["gen_train_peak_mem_gb"],
+        "k1_per_step": res["gen_k1_launches_per_step"],
+        "psnr_rows": [r["psnr"] for r in curve],
+        "eikonal_rows": [r["eikonal_loss"] for r in curve],
+        "loss_rows": [r["loss"] for r in curve], "profile": prof}),
+        flush=True)
+
+
+def quality_ft_path(heldout: dict) -> None:
+    """``gens_torch.eval.quality_train --phase ft`` from the trained
+    artifact at the r05 width for 30 steps: K3 54 times (ft_init's and
+    ft's 192³ meshes) and nothing else, every curve row finite, ft_init's
+    accuracy within QUALITY_FT_INIT_RTOL of ``heldout`` (the quality
+    phase's score of the same artifact)."""
+    from gens_torch.eval import quality_train
+
+    artifact = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
+    out = os.path.join(QUALITY_TRAIN_DIR, "quality_ft.json")
+    flags = ["--phase", "ft", "--gen-ckpt", artifact,
+             "--steps-ft", str(QUALITY_FT_STEPS), "--dims", "128", "--hw",
+             "480", "--w", "640", "--samples", "64", "--rays", "512",
+             "--agg-packed", "pallas", "--bf16", "--agg-remat",
+             "save_gathers", "--mesh-res", "192"]
+    zero_counts()
+    t0 = time.perf_counter()
+    res = quality_train.main(flags + [
+        "--out", out, "--runs-dir", QUALITY_TRAIN_DIR,
+        "--ckpt-out", os.path.join(QUALITY_TRAIN_DIR, "ft.ckpt")])
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    k3 = 2 * (192 // 64) ** 3
+    assert counts == {**{k: 0 for k in counts}, "K3": k3}, counts
+    assert res["ft_k3_launches"] == k3, res
+    curve = res["ft_curve"]
+    assert [r["step"] for r in curve] == [0, QUALITY_FT_STEPS - 1], curve
+    finite_rows(curve)
+    acc, ref = res["ft_init_acc_mean"], heldout["heldout_acc_mean"]
+    keys = ("acc_mean", "acc_p50", "comp_mean", "overall", "verts_scored")
+    # one finetune step from the artifact, under the profiler
+    from gens_torch.convert import load_params
+    from gens_torch.data.synthetic import make_scene
+    from gens_torch.eval import quality_finetune
+    from gens_torch.eval.quality import scene_params
+    from gens_torch.models.gens import GenSModel
+    from gens_torch.train.step import FinetuneStep
+
+    args = quality_train.parse_args(flags)
+    cfg = quality_finetune.ft_cfg(args)
+    model = GenSModel(cfg.model)
+    load_params(model, artifact)
+    model = model.cuda()
+    kw = scene_params(quality_finetune.FT_SCENE)
+    base = make_scene(n_views=3, hw=(480, 640), n_rays=512, seed=123,
+                      spread=0.5, **kw)
+    step = FinetuneStep(model, cfg, *model.init_volumes(
+        *[torch.from_numpy(base[k]).cuda() for k in ("imgs", "intrs",
+                                                      "c2ws")]))
+    batch = quality_finetune.ft_batches(base, kw, (480, 640), 512,
+                                        torch.device("cuda"), n_batches=1)[0]
+
+    def one_step():
+        step(batch, 1.0, generator=torch.Generator().manual_seed(0))
+
+    one_step()
+    prof = profile_step(one_step)
+    del model, step, batch
+    print("quality ft path: " + json.dumps({
+        "wall_s": wall, "steps": QUALITY_FT_STEPS,
+        "ms_per_step": res["ft_ms_per_step"],
+        "first_step_s": res["ft_compile_s"],
+        "init_volumes_s": res["ft_init_volumes_s"],
+        "train_peak_mem_gb": res["ft_train_peak_mem_gb"],
+        "k3_launches": res["ft_k3_launches"],
+        "psnr_rows": [r["psnr"] for r in curve],
+        "ft_init": {k: res[f"ft_init_{k}"] for k in keys},
+        "ft": {k: res.get(f"ft_{k}") for k in keys},
+        "heldout_acc_mean": ref, "ft_init_rel_err": abs(acc - ref) / ref,
+        "mesh_grid_s": [res["ft_init_mesh_grid_s"], res["ft_mesh_grid_s"]],
+        "profile": prof}), flush=True)
+    assert abs(acc - ref) <= QUALITY_FT_INIT_RTOL * ref, (acc, ref)
 
 
 PHASE_A_TERMS = ("color_loss", "eikonal_loss", "smooth_loss", "sparse_loss",

@@ -215,15 +215,17 @@ def _sync(device) -> None:
 
 @torch.no_grad()
 def eval_scene(model, scene_kw: Dict, tag: str, hw, device,
-               mesh_res: int = 192) -> Dict[str, float]:
-    """One-shot scene build, full-image render at stride 2, K3 mesh,
-    cleaning and the geometric error (scripts/quality_synthetic.py:456).
-    Adds the phases' seconds as ``<tag>_<phase>_s``."""
+               mesh_res: int = 192, n_views: int = EVAL_VIEWS,
+               spread: float = SPREAD) -> Dict[str, float]:
+    """One-shot scene build from ``n_views`` views, full-image render at
+    stride 2, K3 mesh, cleaning and the geometric error
+    (scripts/quality_synthetic.py:456). Adds the phases' seconds as
+    ``<tag>_<phase>_s``."""
     from gens_torch.data.synthetic import make_scene
     from gens_torch.mesh.extract import eval_sdf_grid, grid_to_mesh
 
-    raw = make_scene(n_views=EVAL_VIEWS, hw=hw, n_rays=16, seed=123,
-                     spread=SPREAD, **scene_kw)
+    raw = make_scene(n_views=n_views, hw=hw, n_rays=16, seed=123,
+                     spread=spread, **scene_kw)
     t = {k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
          for k in ("imgs", "intrs", "c2ws", "near", "far")}
     secs = {}

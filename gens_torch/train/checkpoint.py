@@ -51,8 +51,12 @@ def _map(fn, tree):
 
 
 def _to_numpy(tree):
-    return _map(lambda x: x.detach().cpu().numpy() if torch.is_tensor(x)
-                else x, tree)
+    """Tensors as numpy; bfloat16 ones as float32 (numpy has no bfloat16;
+    the optimizer's ``load_state_dict`` casts its state back to each
+    parameter's dtype)."""
+    return _map(lambda x: (x.detach().cpu().float() if x.dtype ==
+                           torch.bfloat16 else x.detach().cpu()).numpy()
+                if torch.is_tensor(x) else x, tree)
 
 
 def _to_torch(tree):
@@ -72,14 +76,19 @@ def save_checkpoint(path: str, epoch: int, step: int, model: torch.nn.Module,
                          **(extra or {})})
 
 
-def save_params_checkpoint(path: str, step: int, model: torch.nn.Module
+def save_params_checkpoint(path: str, step: int, model: torch.nn.Module,
+                           params: Optional[Dict[str, Any]] = None,
+                           extra: Optional[Dict[str, Any]] = None
                            ) -> Dict[str, Any]:
     """``{epoch: 0, step, format_version, params}``: the params alone in
     the JAX layout, as scripts/quality_synthetic.py saves a trained
-    model."""
+    model; ``params`` replaces the model's tree (a finetune's, from
+    ``convert.finetune_params_to_jax``) and ``extra`` adds keys."""
+    if params is None:
+        params = params_to_jax(model.state_dict())
     return _write(path, {"epoch": 0, "step": int(step),
                          "format_version": CKPT_FORMAT_VERSION,
-                         "params": params_to_jax(model.state_dict())})
+                         "params": params, **(extra or {})})
 
 
 def _write(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:

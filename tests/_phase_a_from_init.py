@@ -14,6 +14,18 @@ draws); ``port`` the port's step with the JAX step's draws passed in;
 from the same params, batches and schedule, and prints the PSNR and the
 Eikonal loss every 25 steps. A seed's init depends on the torch version,
 so write it where the run to explain took place.
+
+    # on the card: phase a's recipe changed one field at a time
+    python tests/_phase_a_from_init.py --variants OUT.json [--seed 1] \
+        [--steps 200] [recipe mfc0 warmup2 varlr_half]
+
+``--variants`` runs ``gens_torch.eval.quality_train --phase a`` (a-table,
+``--steps-a 1500``, stopped at ``--steps``, no evaluation) from the seed's
+init once per variant, in one process, with one field of the recipe
+changed: ``recipe`` none, ``mfc0`` ``train.loss.mfc_weight`` 0,
+``warmup2`` ``train.warmup`` doubled to ``steps_a // 10``, ``varlr_half``
+``train.lr_variance_mult`` 0.5. It writes every variant's curve (rows
+every 25 steps) and segment to OUT.json.
 """
 
 import argparse
@@ -87,13 +99,61 @@ def jax_steps(payload, batches, n, packed):
         yield s, float(m["psnr"]), float(m["eikonal_loss"])
 
 
+VARIANTS = {
+    "recipe": lambda cfg: None,
+    "mfc0": lambda cfg: setattr(cfg.train.loss, "mfc_weight", 0.0),
+    "warmup2": lambda cfg: setattr(cfg.train, "warmup",
+                                   max(cfg.train.epochs // 10, 1)),
+    "varlr_half": lambda cfg: setattr(cfg.train, "lr_variance_mult", 0.5),
+}
+
+
+def run_variants(out, names, seed, steps, device):
+    """Phase a through its entry point, one recipe field changed a run."""
+    import json
+    import tempfile
+
+    build_cfg = qt.build_cfg
+    rows = {}
+    try:
+        for name in names:
+            def patched(args, n_steps, change=VARIANTS[name]):
+                cfg = build_cfg(args, n_steps)
+                change(cfg)
+                return cfg
+
+            qt.build_cfg = patched
+            with tempfile.TemporaryDirectory() as tmp:
+                res = qt.main([
+                    "--phase", "a", "--seed", str(seed), "--steps-a", "1500",
+                    "--stop-at", str(steps), "--skip-eval",
+                    "--device", device,
+                    "--out", os.path.join(tmp, f"{name}.json"),
+                    "--runs-dir", tmp])
+            rows[name] = {"curve": res["overfit_curve"],
+                          "segments": res["overfit_segments"]}
+            with open(out, "w") as f:
+                json.dump({"seed": seed, "steps": steps, "variants": rows},
+                          f, indent=1)
+    finally:
+        qt.build_cfg = build_cfg
+
+
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--init", required=True)
+    p.add_argument("--variants", default=None, metavar="OUT")
+    p.add_argument("names", nargs="*", default=list(VARIANTS))
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--init", default=None)
     p.add_argument("--write-init", type=int, default=None, metavar="SEED")
     p.add_argument("--mode", choices=["portgen", "port", "plain", "packed"])
     p.add_argument("--steps", type=int, default=160)
     args = p.parse_args()
+    if args.variants:
+        run_variants(args.variants, args.names or list(VARIANTS), args.seed,
+                     args.steps, args.device)
+        return
     cfg = qt.build_cfg(qt.parse_args([]), 1500)
     cfg.train.anneal_end = 1500 // 4
     if args.write_init is not None:
@@ -110,8 +170,7 @@ def main():
 
     payload = load_checkpoint(args.init)
     batches, _ = qt.pregen_batches(scene_params(0), 64, False, 0, (128, 128),
-                                   512, qt.TRAIN_VIEWS, 0.5,
-                                   torch.device("cpu"))
+                                   512, 5, 0.5, torch.device("cpu"))
     if args.mode in ("portgen", "port"):
         rows = port_steps(payload, cfg, batches, args.steps,
                           args.mode == "port")
