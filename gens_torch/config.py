@@ -11,6 +11,11 @@ splat backward, below), ``volume.splat_window``,
 ``volume.agg_remat``, ``sdf_network.packed_trilerp``,
 ``sdf_network.fused_*``, ``color_network.packed_bilerp``,
 ``color_network.fused_pyramid`` and ``compilation_cache_dir``.
+In the JAX package ``sdf_network.packed_trilerp`` does change the
+training gradient: under the render core's nesting its lookup passes the
+volumes no gradient of the SDF value and ∇SDF and only the trilerp's own
+Hessian part of Hessian·1's (ROADMAP §C). The port keeps the plain
+trilerp's gradient under either value.
 
 The dtype keys are honoured as casts at the places the JAX code casts:
 ``volume.dtype`` (the emitted raw volumes), ``reg_network.dtype`` (U-Net

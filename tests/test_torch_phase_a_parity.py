@@ -7,14 +7,18 @@ Marked ``slow`` (two JAX compiles at these widths, 1.5-3 minutes); run with
 The first step's losses agree. From the second step on, the SDF's volume
 features carry weight (the geometric init zeroes them), and the volumes
 get a gradient through the SDF. There the JAX step under
-``sdf_network.packed_trilerp: true`` (every configuration's default, and
-the quality script's) differs from its own step under ``false`` and from
-the port: its packed-diff lookup (gens_tpu/ops/interp.py:825) passes
-little of that gradient on to the U-Net. The port
-computes the plain trilerp's gradient, which the JAX step computes under
-``packed_trilerp: false``. This test pins both facts and prints the
-per-module gradients it compares."""
+``sdf_network.packed_trilerp: true`` (which confs/dtu.yaml and the
+quality script set) differs from its own step under ``false`` and from
+the port: its packed-diff lookup (gens_tpu/ops/interp.py:786-833) passes
+the volumes none of the render core's SDF value and ∇SDF gradient and only
+the trilerp's own Hessian part of its Hessian·1 gradient (ROADMAP §C), so
+the U-Net gets little. The port computes the plain trilerp's gradient,
+which the JAX step computes under ``packed_trilerp: false``; with the
+reference's detaches installed (tests/_reference_packed_grad.py) it
+computes the JAX step's under ``true``. This test pins these facts and
+prints the per-module gradients it compares."""
 
+import contextlib
 import importlib.util
 import os
 
@@ -34,6 +38,7 @@ from gens_torch.train.step import TrainStep
 from gens_tpu.models.gens import GenSModel as JGenSModel
 
 import _torch_common  # noqa: F401  (torch at one thread)
+from _reference_packed_grad import reference_packed_grad
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ("feature", "reg", "sdf", "blending", "variance")
@@ -82,7 +87,8 @@ def grads_by_module(grads):
 def second_step():
     """The losses of the first step in both packages; then, at the port's
     params after that step, the gradient of the second step's loss in the
-    port and in the JAX step with packed_trilerp true and false."""
+    port, in the port with the reference's detaches, and in the JAX step
+    with packed_trilerp true and false."""
     args = qt.parse_args([])
     tcfg = qt.build_cfg(args, args.steps_a)
     tcfg.train.anneal_end = args.steps_a // 4
@@ -123,17 +129,22 @@ def second_step():
     # the second step's gradient at the port's params after the first
     _, noise, sparse = draws(1)
     tm.train()
-    tm.zero_grad(set_to_none=True)
     anneal = 1 / tcfg.train.anneal_end
-    out = tm.forward_train(batches[1], anneal, False, perturb_noise=noise,
-                           sparse_pts=sparse)
-    tl.compute_losses(out, batches[1], tcfg.train.loss)["loss"].backward()
-    port = grads_by_module({n: p.grad for n, p in tm.named_parameters()
-                            if p.grad is not None})
+    port = {}
+    for name, ctx in (("port", contextlib.nullcontext),
+                      ("port_ref", reference_packed_grad)):
+        tm.zero_grad(set_to_none=True)
+        with ctx():
+            out = tm.forward_train(batches[1], anneal, False,
+                                   perturb_noise=noise, sparse_pts=sparse)
+        tl.compute_losses(out, batches[1], tcfg.train.loss)["loss"].backward()
+        port[name] = grads_by_module({n: p.grad for n, p
+                                      in tm.named_parameters()
+                                      if p.grad is not None})
     return {"jax_first": jax_first,
             "port_first": {k: float(v) for k, v in port_first.items()
                            if k != "phase_ms"},
-            "port": port, "jax_packed": jax_at(True, 1)[0],
+            **port, "jax_packed": jax_at(True, 1)[0],
             "jax_plain": jax_at(False, 1)[0]}
 
 
@@ -171,3 +182,18 @@ def test_jax_packed_trilerp_passes_little_volume_gradient(second_step):
     assert rel(plain["sdf"], packed["sdf"]) <= GRAD_TOL["sdf"]
     assert rel(plain["reg"], packed["reg"]) > 0.5, norms["reg"]
     assert norms["reg"][1] < 0.1 * norms["reg"][0], norms["reg"]
+
+
+def test_reference_detaches_give_the_jax_packed_step(second_step):
+    """With the reference's detaches installed, the port's gradient is the
+    JAX step's under packed_trilerp true, per module, within the bounds
+    that hold the plain port to the JAX step under false."""
+    port_ref, packed = second_step["port_ref"], second_step["jax_packed"]
+    errs = {k: rel(packed[k], port_ref[k]) for k in MODULES}
+    print("port with the reference's detaches against JAX "
+          "packed_trilerp=true:", errs)
+    print("gradient norm, port with the detaches / JAX true:",
+          {k: (float(port_ref[k].norm()), float(packed[k].norm()))
+           for k in MODULES})
+    for k in MODULES:
+        assert errs[k] <= GRAD_TOL[k], (k, errs[k])

@@ -13,7 +13,10 @@ mesh), f32, from a tiny phase b run of the port:
   sparse points: the losses within 1e-4 relative (as
   tests/test_torch_finetune.py holds the finetune step: the smooth term's
   finite differences of the trained SDF differ by 5e-5) and the updated
-  params;
+  params; in a ``slow`` test, the same step's gradient in both packages
+  under both values of the key: the port's against the script's under
+  false, and the port's with the reference's detaches
+  (tests/_reference_packed_grad.py) against the script's under true;
 * ``ft_init``'s grid (K3's plain version on the CPU) against the JAX
   ``sdf_fn_for_extraction`` grid of the same volumes, and the port's
   ``quality_ft.ckpt`` and ``quality_gen.ckpt`` read by
@@ -22,6 +25,7 @@ mesh), f32, from a tiny phase b run of the port:
 Phase b's first step against JAX is in tests/test_torch_quality_train.py,
 so the two JAX compiles run in two test files."""
 
+import contextlib
 import importlib.util
 import os
 
@@ -44,6 +48,7 @@ from gens_tpu.train import checkpoint as jckpt
 from gens_tpu.train.step import make_finetune_optimizer as j_ft_optimizer
 
 import _torch_common  # noqa: F401  (torch at one thread)
+from _reference_packed_grad import reference_packed_grad
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--device", "cpu", "--hw", "32", "--dims", "32", "--samples", "8",
@@ -85,6 +90,61 @@ def as_numpy(tree):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
 
 
+def ft_setup(gen: str, packed: bool):
+    """Phase ft's first step from the checkpoint ``gen`` in both packages:
+    the port's configuration and model, its ``init_volumes`` and first
+    batch; the script's JAX configuration (scripts/quality_synthetic.py:
+    662-667) under ``sdf_network.packed_trilerp: packed``, its model and
+    finetune params and statics from the same init."""
+    from gens_torch.convert import load_params
+    from gens_torch.data.synthetic import make_scene
+
+    args = qt.parse_args(TINY + ["--phase", "ft", "--steps-ft", "3",
+                                 "--gen-ckpt", gen])
+    tcfg = qf.ft_cfg(args)
+    jcfg = jax_cfg(args, args.steps_ft)
+    jcfg.train.anneal_end = max(args.steps_ft // 8, 1)
+    jcfg.train.warmup = 0
+    jcfg.train.loss.sparse_weight = 0.0
+    jcfg.train.loss.smooth_weight = 5e-4
+    jcfg.train.loss.pseudo_depth_weight = 0.0
+    jcfg.model.sdf_network.packed_trilerp = packed
+    tm = TGenSModel(tcfg.model)
+    payload = load_params(tm, gen)
+    kw = scene_params(-1)
+    base = make_scene(n_views=3, hw=(32, 32), n_rays=64, seed=123,
+                      spread=0.5, **kw)
+    with torch.no_grad():
+        vols, masks, feats = tm.init_volumes(
+            *[torch.from_numpy(base[k]) for k in ("imgs", "intrs", "c2ws")])
+    batch = qf.ft_batches(base, kw, (32, 32), 64, torch.device("cpu"))[0]
+    jm = JGenSModel(jcfg.model)
+    jp = jax.tree.map(jnp.asarray, payload["params"])
+    ftp = {"volumes": [jnp.asarray(v.numpy()) for v in vols],
+           **{k: jp[k] for k in ("sdf", "blending", "variance")}}
+    static = {"mask_volumes": [jnp.asarray(m.numpy()) for m in masks],
+              "features": [jnp.asarray(f.numpy()) for f in feats]}
+    jin = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    jin["view_ids"] = jin["view_ids"].astype(jnp.int32)
+    return dict(tcfg=tcfg, jcfg=jcfg, tm=tm, vols=vols, masks=masks,
+                feats=feats, batch=batch, jm=jm, jp=jp, ftp=ftp,
+                static=static, jin=jin)
+
+
+def jax_ft_loss(s):
+    """The script's ft loss (scripts/quality_synthetic.py:737-748) of
+    ``ft_setup``'s model and statics."""
+    jm, jcfg, static = s["jm"], s["jcfg"], s["static"]
+
+    def loss_fn(p, inputs, key, anneal):
+        out = jm.forward_finetune(p, static, inputs, anneal, key)
+        losses = jl.compute_losses(out, inputs, jcfg.train.loss)
+        mse = jnp.mean((out["color_fine"] - inputs["color"]) ** 2)
+        losses["psnr"] = 20.0 * jnp.log10(1.0 / jnp.sqrt(mse + 1e-12))
+        return losses["loss"], losses
+    return loss_fn
+
+
 @pytest.fixture(scope="module")
 def ft_step(tmp_path_factory):
     """A tiny phase b run and its checkpoint, then phase ft's first step
@@ -96,60 +156,26 @@ def ft_step(tmp_path_factory):
     qt.main(TINY + ["--phase", "b", "--steps-b", "2", "--n-train-scenes",
                     "2", "--skip-eval", "--out", str(tmp / "b.json"),
                     "--runs-dir", str(tmp), "--ckpt-out", gen])
-    args = qt.parse_args(TINY + ["--phase", "ft", "--steps-ft", "3",
-                                 "--gen-ckpt", gen])
-    tcfg = qf.ft_cfg(args)
-    # scripts/quality_synthetic.py:662-667
-    jcfg = jax_cfg(args, args.steps_ft)
-    jcfg.train.anneal_end = max(args.steps_ft // 8, 1)
-    jcfg.train.warmup = 0
-    jcfg.train.loss.sparse_weight = 0.0
-    jcfg.train.loss.smooth_weight = 5e-4
-    jcfg.train.loss.pseudo_depth_weight = 0.0
     # the volumes' whole gradient comes through the SDF's trilerp, where
-    # the JAX packed-diff lookup passes little of it on (ROADMAP §C); the
-    # port computes the plain trilerp's, which is JAX's under false (the
+    # the JAX packed-diff lookup passes them little of theirs (ROADMAP §C);
+    # the port computes the plain trilerp's, which is JAX's under false (the
     # forward is the same function either way)
-    jcfg.model.sdf_network.packed_trilerp = False
-    from gens_torch.convert import load_params
-    from gens_torch.data.synthetic import make_scene
-
-    tm = TGenSModel(tcfg.model)
-    payload = load_params(tm, gen)
-    kw = scene_params(-1)
-    base = make_scene(n_views=3, hw=(32, 32), n_rays=64, seed=123,
-                      spread=0.5, **kw)
-    with torch.no_grad():
-        vols, masks, feats = tm.init_volumes(
-            *[torch.from_numpy(base[k]) for k in ("imgs", "intrs", "c2ws")])
-    batch = qf.ft_batches(base, kw, (32, 32), 64, torch.device("cpu"))[0]
-
-    jm = JGenSModel(jcfg.model)
-    jp = jax.tree.map(jnp.asarray, payload["params"])
-    ftp = {"volumes": [jnp.asarray(v.numpy()) for v in vols],
-           **{k: jp[k] for k in ("sdf", "blending", "variance")}}
-    static = {"mask_volumes": [jnp.asarray(m.numpy()) for m in masks],
-              "features": [jnp.asarray(f.numpy()) for f in feats]}
-    optimizer = j_ft_optimizer(jcfg.train)
+    s = ft_setup(gen, packed=False)
+    tcfg, tm, batch = s["tcfg"], s["tm"], s["batch"]
+    vols, masks, feats = s["vols"], s["masks"], s["feats"]
+    jm, jp, ftp = s["jm"], s["jp"], s["ftp"]
+    optimizer = j_ft_optimizer(s["jcfg"].train)
+    loss_fn = jax_ft_loss(s)
 
     @jax.jit
     def j_ft_step(ftp, opt_state, inputs, key, anneal):
-        # scripts/quality_synthetic.py:737-748
-        def loss_fn(p):
-            out = jm.forward_finetune(p, static, inputs, anneal, key)
-            losses = jl.compute_losses(out, inputs, jcfg.train.loss)
-            mse = jnp.mean((out["color_fine"] - inputs["color"]) ** 2)
-            losses["psnr"] = 20.0 * jnp.log10(1.0 / jnp.sqrt(mse + 1e-12))
-            return losses["loss"], losses
-
-        grads, metrics = jax.grad(loss_fn, has_aux=True)(ftp)
+        grads, metrics = jax.grad(loss_fn, has_aux=True)(ftp, inputs, key,
+                                                         anneal)
         updates, opt_state = optimizer.update(grads, opt_state, ftp)
         return optax.apply_updates(ftp, updates), opt_state, metrics, grads
 
     key, noise, sparse = draws(0, 64, 512)
-    jin = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
-    jin["view_ids"] = jin["view_ids"].astype(jnp.int32)
-    jnew, _, jmetrics, jgrads = j_ft_step(ftp, optimizer.init(ftp), jin,
+    jnew, _, jmetrics, jgrads = j_ft_step(ftp, optimizer.init(ftp), s["jin"],
                                           key, 0.0)
     step = FinetuneStep(tm, tcfg, vols, masks, feats)
     metrics = step(batch, 0.0, perturb_noise=noise, sparse_pts=sparse)
@@ -171,6 +197,8 @@ def ft_step(tmp_path_factory):
                                    jnp.asarray(pts.reshape(-1, 3))),
                              np.float32).reshape(32, 32, 32)
         return t_grid, j_grid
+
+    from gens_torch.convert import load_params
 
     tm_init = TGenSModel(tcfg.model)
     load_params(tm_init, gen)
@@ -279,3 +307,80 @@ def test_jax_reads_the_ports_quality_gen_checkpoint(ft_step):
     for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got)):
         assert a.shape == b.shape and a.dtype == b.dtype
 
+
+
+GROUPS = ("volumes", "sdf", "blending", "variance")
+# ||g_port - g_jax|| / ||g_jax|| of phase ft's first step per group, f32
+FT_GRAD_RTOL = 1e-3
+
+
+def grad_groups(named):
+    """{group: its gradients, flat, in the order of their names}."""
+    out = {}
+    for name in sorted(named):
+        top = name.split(".")[0]
+        if top in GROUPS:
+            out.setdefault(top, []).append(named[name].reshape(-1))
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def ft_gradients(ft_step):
+    """Phase ft's first-step gradient from ``ft_step``'s checkpoint: the
+    script's ft loss under packed_trilerp true and false, and the port's
+    step with and without the reference's detaches."""
+    key, noise, sparse = draws(0, 64, 512)
+    out = {}
+    for packed in (True, False):
+        s = ft_setup(ft_step["gen"], packed)
+        g, _ = jax.jit(jax.grad(jax_ft_loss(s), has_aux=True))(
+            s["ftp"], s["jin"], key, 0.0)
+        g = as_numpy(g)
+        named, _ = finetune_params_from_jax(
+            {**{k: g[k] for k in ("sdf", "blending", "variance")},
+             "volumes": [], "mask_volumes": [], "features": []})
+        named.update({f"volumes.{i}": torch.from_numpy(np.array(v))
+                      for i, v in enumerate(g["volumes"])})
+        out["jax_packed" if packed else "jax_plain"] = grad_groups(named)
+    for name, ctx in (("port", contextlib.nullcontext),
+                      ("port_ref", reference_packed_grad)):
+        s = ft_setup(ft_step["gen"], False)
+        step = FinetuneStep(s["tm"], s["tcfg"], s["vols"], s["masks"],
+                            s["feats"])
+        with ctx():
+            step(s["batch"], 0.0, perturb_noise=noise, sparse_pts=sparse)
+        named = {n: p.grad for n, p in s["tm"].named_parameters()
+                 if p.grad is not None}
+        named.update({f"volumes.{i}": v.grad
+                      for i, v in enumerate(step.volumes)})
+        out[name] = grad_groups(named)
+    return out
+
+
+def rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.slow
+def test_ft_gradient_with_the_reference_detaches_is_the_scripts_packed(
+        ft_gradients):
+    """The volumes' whole gradient comes through the SDF lookups: under
+    packed_trilerp true the script's differs from its own under false (by
+    0.44 of its norm here: the pseudo points' share is kept, the render
+    core's value and ∇SDF share is dropped), the port's is the one under
+    false, and the port's with the reference's detaches the one under true,
+    per group."""
+    g = ft_gradients
+    pairs = {"plain": ("port", "jax_plain"), "packed": ("port_ref",
+                                                        "jax_packed")}
+    errs = {p: {k: rel(g[a][k], g[b][k]) for k in GROUPS}
+            for p, (a, b) in pairs.items()}
+    print("phase ft, port against the script (plain) and port with the "
+          "detaches against the script under true (packed):", errs)
+    print("volumes' gradient norm, script false / true:",
+          float(g["jax_plain"]["volumes"].norm()),
+          float(g["jax_packed"]["volumes"].norm()))
+    assert rel(g["jax_packed"]["volumes"], g["jax_plain"]["volumes"]) > 0.1
+    for p in pairs:
+        for k in GROUPS:
+            assert errs[p][k] <= FT_GRAD_RTOL, (p, k, errs[p][k])
