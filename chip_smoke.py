@@ -11,8 +11,8 @@ the script starts them itself.)
 2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K1 (gens_torch/csrc/splat.cu),
    K2 (gens_torch/csrc/window_fwd.cu) and P1-P3
    (gens_torch/csrc/gather_probe.cu), one nvcc each, started together,
-   and the native isosurface and raycaster, from the sources in the
-   checkout.
+   and the native isosurface and raycaster and the zstd decoder, from the
+   sources in the checkout.
 3. The val path, through its entry point ``gens_torch.main --mode val``, at
    the full width of confs/dtu.yaml's model (256³…16³ cascade, 64+64
    samples, 4 up-sample rounds, 128-wide SDF MLP with 129 outputs) on the
@@ -70,6 +70,19 @@ the script starts them itself.)
    zeroed just before and read just after; K3 must have launched 27 times.
    Held-out accuracy within 15% and PSNR within 0.5 dB of the JAX record,
    QUALITY_r05_sharpen_repro.json.
+   Then the same params in gens_tpu's default checkpoint format, the orbax
+   OCDBT directory artifacts/quality_gen_r05_sharpen.orbax (written by
+   gens_tpu's save_checkpoint, tests/_write_orbax_fixture.py), read through
+   the port's own OCDBT, zarr and zstd readers (no orbax, tensorstore or
+   zstandard on this machine): every leaf bit-equal to the pickle's,
+   dtype included, with the read's seconds and MB/s; the quality
+   evaluation of the held-out sphere from the pickle and from the
+   directory (K3 27 each), every score equal; ``gens_torch.main --mode
+   finetune`` with 0 steps (the volume build alone, 3 views at 1152x1600
+   under ``kernel2f``, K2 15) from the directory and from the pickle, the
+   volumes, masks and features equal. These pairs run with cuDNN's
+   deterministic convolutions (without, two runs on the same params
+   differ). One "orbax path" line.
 9. The gather probes, through ``gens_torch.probes.gather --iters 2`` (every
    row of both TPU probe scripts; counters zeroed just before and read just
    after, P1-P3 launched in it), printed on one ``gather_probe`` line; then
@@ -241,6 +254,7 @@ def main() -> int:
     from gens_torch.ops import splat as k1
     from gens_torch.ops import window_fwd as k2
     from gens_torch.ops.cuda_build import build_libraries
+    from gens_torch.utils import zstd
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -254,6 +268,7 @@ def main() -> int:
                              "gather_probe.cu"])
     isosurface.build_library()
     clean.build_library()
+    zstd.build_library()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
         f"{k} {v[1]} s" for k, v in built.items()) + ")", flush=True)
     for _, _, ptxas in built.values():
@@ -367,6 +382,10 @@ def main() -> int:
 
     # -- the quality evaluation, through its entry point --------------------
     heldout = quality_path()
+    torch.cuda.empty_cache()
+
+    # -- the same params from gens_tpu's orbax format ------------------------
+    orbax_path(gens_main, card)
     torch.cuda.empty_cache()
 
     # -- the gather probes, through their entry point ----------------------
@@ -1232,6 +1251,138 @@ def quality_path() -> dict:
         raise AssertionError(f"held-out PSNR {psnr} is not within "
                              f"{QUALITY_PSNR_ATOL} dB of {ref_psnr}")
     return res
+
+
+ORBAX_FIXTURE = os.path.join(REPO, "artifacts",
+                             "quality_gen_r05_sharpen.orbax")
+
+
+def _tree_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_tree_leaves(v, path + (k,)))
+        return out
+    return {path: tree}
+
+
+def _finetune_build(gens_main, ckpt: str, exp: str):
+    """``gens_main --mode finetune`` from ``ckpt`` with 0 steps: the volume
+    build alone at the DTU finetune shape under ``kernel2f``; returns (the
+    built volumes, masks and features, the build's seconds, K2's
+    launches)."""
+    argv = ["--conf", os.path.join(REPO, "confs", "dtu_finetune.yaml"),
+            "--mode", "finetune", "--resume", ckpt,
+            "--set", f"base_exp_dir={exp}",
+            "finetune_dataset.dataset_name=synthetic",
+            "finetune_dataset.num_src_view=2",
+            "finetune_dataset.img_hw=[1152,1600]", "train.epochs=0",
+            "model.volume.packed_bilerp=pallas",
+            "model.volume.splat_impl=kernel2f"]
+    zero_counts()
+    runner = gens_main(argv)
+    counts = launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "K2": 5 * 3}, counts
+    step = runner.ft_step
+    return ([t.detach().clone() for t in step.volumes],
+            [t.detach().clone() for t in step.mask_volumes],
+            [t.detach().clone() for t in step.features]), \
+        runner.init_volumes_s, counts["K2"]
+
+
+def orbax_path(gens_main, card: str) -> None:
+    """The trained artifact's params from gens_tpu's default checkpoint
+    format, artifacts/quality_gen_r05_sharpen.orbax: read through the
+    port bit-equal to the pickle; the held-out quality evaluation (K3 27)
+    and the finetune's volume build (K2 15) from it equal to the same runs
+    from the pickle. Both runs of a pair use cuDNN's deterministic
+    convolutions: by default cuDNN may choose a nondeterministic algorithm,
+    and two runs on the same params differ (the feature net's outputs by
+    ~4e-6, the bf16 volumes by up to 0.5, the held-out accuracy in its
+    third digit)."""
+    import importlib.util
+
+    from gens_torch.convert import load_checkpoint
+    from gens_torch.eval import quality
+
+    phase_t0 = time.perf_counter()
+    artifact = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
+    absent = [m for m in ("orbax", "tensorstore", "zstandard")
+              if importlib.util.find_spec(m) is None]
+    dir_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(ORBAX_FIXTURE) for f in files)
+    t0 = time.perf_counter()
+    payload = load_checkpoint(ORBAX_FIXTURE)
+    read_s = time.perf_counter() - t0
+    got = _tree_leaves(payload)
+    want = _tree_leaves(load_checkpoint(artifact))
+    assert got.keys() == want.keys(), sorted(set(got) ^ set(want))
+    for path, leaf in want.items():
+        a, b = np.asarray(got[path]), np.asarray(leaf)
+        assert (a.dtype, a.shape) == (b.dtype, b.shape), path
+        assert a.tobytes() == b.tobytes(), path
+    param_bytes = sum(np.asarray(v).nbytes for k, v in got.items()
+                      if k[0] == "params")
+    dtypes = sorted({str(np.asarray(v).dtype) for k, v in got.items()
+                     if k[0] == "params"})
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res, quality_s = {}, {}
+        for name, ckpt in (("pickle", artifact), ("orbax", ORBAX_FIXTURE)):
+            out = os.path.join(REPO, "build",
+                               f"chip_smoke_quality_{name}.json")
+            zero_counts()
+            t0 = time.perf_counter()
+            res[name] = quality.main(["--ckpt", ckpt, "--scenes", "heldout",
+                                      "--out", out])
+            quality_s[name] = time.perf_counter() - t0
+            counts = launch_counts()
+            assert counts == {**{k: 0 for k in counts},
+                              "K3": (192 // 64) ** 3}, counts
+        ref = res["pickle"]
+        scores = [k for k, v in ref.items() if k.startswith("heldout_")
+                  and not k.endswith(("_s", "rays_per_s"))
+                  and isinstance(v, (int, float))]
+        assert scores and res["orbax"]["params_stored_dtype"] == \
+            ref["params_stored_dtype"]
+        differ = {k: (res["orbax"][k], ref[k]) for k in scores
+                  if not np.array_equal(res["orbax"][k], ref[k],
+                                        equal_nan=True)}
+        assert not differ, differ
+        quality_diff = max((float(abs(res["orbax"][k] - ref[k]))
+                            for k in scores if np.isfinite(ref[k])),
+                           default=0.0)
+
+        exp = os.path.join(REPO, "build", "chip_smoke_orbax_ft")
+        from_orbax, orbax_build_s, k2_launches = _finetune_build(
+            gens_main, ORBAX_FIXTURE, exp + "_orbax")
+        from_pickle, pickle_build_s, _ = _finetune_build(
+            gens_main, artifact, exp + "_pickle")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    build_diff = 0.0
+    for xs, ys in zip(from_orbax, from_pickle):
+        assert len(xs) == len(ys) > 0
+        for x, y in zip(xs, ys):
+            assert x.shape == y.shape and x.dtype == y.dtype
+            build_diff = max(build_diff, float((x - y).abs().max()))
+    assert build_diff == 0.0, build_diff
+    print("orbax path: " + json.dumps({
+        "card": card, "wall_s": time.perf_counter() - phase_t0,
+        "absent": absent, "dir_bytes": dir_bytes,
+        "read_s": read_s, "read_mb_per_s": dir_bytes / read_s / 1e6,
+        "params_mb_per_s": param_bytes / read_s / 1e6,
+        "leaves": len(got), "bit_equal": True, "params_dtypes": dtypes,
+        "quality_s": quality_s, "k3_launches": counts["K3"],
+        "quality_scores": len(scores), "quality_max_diff": quality_diff,
+        "heldout_acc_mean": res["orbax"]["heldout_acc_mean"],
+        "heldout_psnr": res["orbax"]["heldout_psnr"],
+        "ft_build_k2_launches": k2_launches,
+        "ft_build_max_diff": build_diff,
+        "ft_init_volumes_s": {"orbax": orbax_build_s,
+                              "pickle": pickle_build_s}}), flush=True)
 
 
 QUALITY_TRAIN_STEPS = 50

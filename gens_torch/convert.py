@@ -7,8 +7,9 @@
   (:data:`JAX_PICKLE_CLASSES`) load as plain stand-ins whose fields are the
   numpy arrays, and any other class of jax, flax or optax raises
   :class:`UnknownJaxClassError`. Everything else resolves as plain
-  ``pickle`` resolves it. Orbax checkpoint directories are not readable
-  without orbax and raise.
+  ``pickle`` resolves it. A directory is gens_tpu's default format, an
+  orbax checkpoint, which :mod:`gens_torch.train.orbax` reads into the same
+  payload without orbax, tensorstore or zstandard.
 * :func:`params_from_jax` turns a JAX parameter tree (nested dicts of numpy
   arrays, any float dtype) into a ``GenSModel`` state dict in f32.
 * :func:`load_params` does both into a model.
@@ -90,15 +91,16 @@ class _CheckpointUnpickler(pickle.Unpickler):
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Read a JAX (or port) pickle checkpoint; its ``params`` stay numpy
-    arrays, an optax ``opt_state`` comes back as the stand-ins of
-    :data:`JAX_PICKLE_CLASSES`."""
+    """Read a JAX (or port) checkpoint, a pickle file or an orbax
+    directory; its ``params`` stay numpy arrays, an optax ``opt_state``
+    comes back as the stand-ins of :data:`JAX_PICKLE_CLASSES`."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is an orbax checkpoint directory; gens_torch reads the "
-            "pickle format only (save with use_orbax=False in gens_tpu)")
-    with open(path, "rb") as f:
-        payload = _CheckpointUnpickler(f).load()
+        # imported here: the orbax reader builds this module's stand-ins
+        from gens_torch.train.orbax import load_orbax_checkpoint
+        payload = load_orbax_checkpoint(path)
+    else:
+        with open(path, "rb") as f:
+            payload = _CheckpointUnpickler(f).load()
     if not isinstance(payload, dict) or "params" not in payload:
         raise ValueError(f"{path} is not a GenS checkpoint (no 'params')")
     payload.setdefault("format_version", 1)

@@ -31,7 +31,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 def build_library() -> str:
     """Compile native/raycast.cpp unless built; returns the path."""
-    return build_native("raycast.cpp", ["-fopenmp"])
+    return build_native("native/raycast.cpp", ["-fopenmp"])
 
 
 def _load() -> ctypes.CDLL:

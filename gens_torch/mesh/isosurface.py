@@ -5,7 +5,8 @@ gens_tpu/mesh/isosurface.py binds it.
 The library is compiled from source with ``g++`` at first use into
 ``build/gens_torch/`` (the prebuilt ``native/libisosurface.so`` was built for
 another host's CPU); a failed build raises. :func:`build_native` builds the
-repository's other native source, ``native/raycast.cpp``, the same way.
+repository's other native sources the same way: ``native/raycast.cpp`` and
+the port's own ``gens_torch/native/zstd_decode.cpp``.
 """
 
 from __future__ import annotations
@@ -26,13 +27,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def build_native(source: str, flags: Sequence[str] = ()) -> str:
-    """Compile ``native/<source>`` with ``g++ -O3 <flags> -shared -fPIC``
-    into ``build/gens_torch/`` (named by the source's hash) unless built;
+    """Compile ``source`` (a path from the repository's root, such as
+    ``native/raycast.cpp``) with ``g++ -O3 <flags> -shared -fPIC`` into
+    ``build/gens_torch/`` (named by the source's hash) unless built;
     returns the library's path. A failed build raises."""
-    src = os.path.join(_REPO_ROOT, "native", source)
+    src = os.path.join(_REPO_ROOT, source)
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    stem = os.path.splitext(source)[0]
+    stem = os.path.splitext(os.path.basename(source))[0]
     path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
     if not os.path.exists(path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -47,7 +49,7 @@ def build_native(source: str, flags: Sequence[str] = ()) -> str:
 
 def build_library() -> str:
     """Compile native/isosurface.cpp unless built; returns the path."""
-    return build_native("isosurface.cpp")
+    return build_native("native/isosurface.cpp")
 
 
 def _load() -> ctypes.CDLL:

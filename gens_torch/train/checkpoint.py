@@ -14,6 +14,10 @@ port's Adam: the port's (numpy, or the torch tensors that checkpoints of
 earlier versions pickled) through ``load_state_dict``, and the JAX
 package's optax tree through :func:`adam_state_from_jax`.
 
+A JAX checkpoint may also be an orbax directory (gens_tpu's default
+format), which ``convert.load_checkpoint`` reads into the same payload; a
+checkpoint written where one stands replaces it.
+
 A finetune checkpoint is the JAX runner's: ``{epoch, format_version,
 params}`` with the step in ``epoch`` and ``params`` in the finetune format
 (``convert.finetune_params_to_jax``); like the JAX one it holds no
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -96,7 +101,17 @@ def _write(path: str, payload: Dict[str, Any]) -> Dict[str, Any]:
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=4)
-    os.replace(tmp, path)
+    if os.path.isdir(path):
+        # a JAX orbax checkpoint of the same name (a resumed JAX run's
+        # preempt.ckpt): the new file supersedes it, as orbax's force=True
+        # save would
+        old = path + ".replaced"
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old)
+    else:
+        os.replace(tmp, path)
     return payload
 
 
