@@ -252,7 +252,6 @@ def main() -> int:
     from gens_torch.mesh import clean, isosurface
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
-    from gens_torch.ops import window_fwd as k2
     from gens_torch.ops.cuda_build import build_libraries
     from gens_torch.utils import zstd
 
@@ -289,8 +288,8 @@ def main() -> int:
     t0 = time.perf_counter()
     runner = gens_main(argv)
     wall = time.perf_counter() - t0
-    launches = fm.sdf_mlp_fused.launches
-    assert (k1.splat_bilinear.launches, k2.bilerp_window_fwd.launches) == (
+    launches = launch_counts()["K3"]
+    assert (launch_counts()["K1"], launch_counts()["K2"]) == (
         0, 0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = runner.stats[0]
@@ -447,26 +446,23 @@ def k3_slab_err(sdf_net, volumes, grid, dev) -> float:
     return float(np.abs(slab - grid[256:320]).max())
 
 
+KERNELS = {"K3": "k3.launches", "K1": "k1.launches", "K2": "k2.launches",
+           "P1": "p1.launches", "P2": "p2.launches", "P3": "p3.launches"}
+_ZERO = {}
+
+
 def zero_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in counters().values():
-        fn.launches = 0
+    """Count every kernel's launches from 0 from now on."""
+    from gens_torch.utils.profiling import counter
 
-
-def counters() -> dict:
-    """Every kernel wrapper, by the kernel's name."""
-    from gens_torch.ops import fused_mlp as fm
-    from gens_torch.ops import gather as gk
-    from gens_torch.ops import splat as k1
-    from gens_torch.ops import window_fwd as k2
-
-    return {"K3": fm.sdf_mlp_fused, "K1": k1.splat_bilinear,
-            "K2": k2.bilerp_window_fwd, "P1": gk.row_gather_take,
-            "P2": gk.row_gather_take_along, "P3": gk.onehot_gather}
+    _ZERO.update((k, counter(c)) for k, c in KERNELS.items())
 
 
 def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    """Each kernel's launches since :func:`zero_counts`, by its name."""
+    from gens_torch.utils.profiling import counter
+
+    return {k: counter(c) - _ZERO.get(k, 0) for k, c in KERNELS.items()}
 
 
 def render_breakdown(runner) -> dict:
@@ -541,7 +537,6 @@ def train_path(gens_main, dev):
 
     from gens_torch.convert import load_params
     from gens_torch.models.gens import GenSModel
-    from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
     from gens_torch.runner import get_dataset
 
@@ -561,7 +556,6 @@ def train_path(gens_main, dev):
             'train_dataset.scene=["s0","s1","s2"]',
             "train_dataset.num_src_view=4", "train_dataset.img_hw=[480,640]",
             "train_dataset.n_rays=512", "train.epochs=1"]
-    from gens_torch.ops import window_fwd as k2
 
     k1.BilerpAggSplat.on_backward = capture
     torch.cuda.reset_peak_memory_stats()
@@ -570,9 +564,9 @@ def train_path(gens_main, dev):
     t0 = time.perf_counter()
     runner = gens_main(argv)
     wall = time.perf_counter() - t0
-    launches = k1.splat_bilinear.launches
+    launches = launch_counts()["K1"]
     bricks = k1.brick_counts()
-    assert k2.bilerp_window_fwd.launches == 0
+    assert launch_counts()["K2"] == 0
     k1.BilerpAggSplat.on_backward = None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -897,7 +891,6 @@ def finetune_path(gens_main, dev):
     from gens_torch.models.gens import GenSModel
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
-    from gens_torch.ops import window_fwd as k2
     from gens_torch.train.checkpoint import load_finetune_checkpoint
 
     captured, build = {}, {}
@@ -911,9 +904,9 @@ def finetune_path(gens_main, dev):
     init_volumes = GenSModel.init_volumes
 
     def counted_init_volumes(self, imgs, intrs, c2ws):
-        n0 = k2.bilerp_window_fwd.launches
+        n0 = launch_counts()["K2"]
         out = init_volumes(self, imgs, intrs, c2ws)
-        build.update(k2=k2.bilerp_window_fwd.launches - n0,
+        build.update(k2=launch_counts()["K2"] - n0,
                      volumes=[v.clone() for v in out[0]], intrs=intrs,
                      c2ws=c2ws)
         return out
@@ -937,9 +930,9 @@ def finetune_path(gens_main, dev):
     t0 = time.perf_counter()
     runner = gens_main(argv)
     wall = time.perf_counter() - t0
-    launches = k2.bilerp_window_fwd.launches
-    k3_launches = fm.sdf_mlp_fused.launches
-    k1_launches = k1.splat_bilinear.launches
+    launches = launch_counts()["K2"]
+    k3_launches = launch_counts()["K3"]
+    k1_launches = launch_counts()["K1"]
     k1.BilerpAggSplat.on_forward = None
     GenSModel.init_volumes = init_volumes
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2233,16 +2226,15 @@ def dtu_finetune_path(gens_main, tree: str) -> None:
     the trained artifact under ``kernel2f``, 6 steps: K2 15, all in the
     volume build, K3 512 at the validation, finite losses."""
     from gens_torch.models.gens import GenSModel
-    from gens_torch.ops import window_fwd as k2
 
     exp = os.path.join(REPO, "build", "chip_smoke_dtu_ft")
     build = {}
     init_volumes = GenSModel.init_volumes
 
     def counted_init_volumes(self, imgs, intrs, c2ws):
-        n0 = k2.bilerp_window_fwd.launches
+        n0 = launch_counts()["K2"]
         out = init_volumes(self, imgs, intrs, c2ws)
-        build["k2"] = k2.bilerp_window_fwd.launches - n0
+        build["k2"] = launch_counts()["K2"] - n0
         return out
 
     GenSModel.init_volumes = counted_init_volumes

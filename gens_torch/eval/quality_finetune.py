@@ -46,6 +46,7 @@ from gens_torch.eval.quality import mesh_metrics, scene_params
 from gens_torch.eval.quality_train import (_sync, build_cfg, ckpt_path, frame,
                                            inflight_path, record_run,
                                            summary, train_segment)
+from gens_torch.utils.profiling import counter
 
 FT_CURVE_EVERY = 100
 FT_CURVE_KEYS = ("loss", "psnr", "eikonal_loss", "color_loss")
@@ -181,7 +182,6 @@ def phase_ft(args, results: Dict, flush, device) -> bool:
     from gens_torch.convert import finetune_params_to_jax, load_params
     from gens_torch.data.synthetic import make_scene
     from gens_torch.models.gens import GenSModel
-    from gens_torch.ops import fused_mlp as k3
     from gens_torch.train.checkpoint import save_params_checkpoint
     from gens_torch.train.step import FinetuneStep
 
@@ -194,7 +194,7 @@ def phase_ft(args, results: Dict, flush, device) -> bool:
     base = make_scene(n_views=args.eval_views, hw=hw, n_rays=args.rays,
                       seed=123, spread=args.spread, **kw)
     inflight = inflight_path(args, "ft")
-    k3_before = k3.sdf_mlp_fused.launches
+    k3_before = counter("k3.launches")
     if os.path.exists(inflight):
         step_fn, start, curve, segments = _resume(inflight, model, cfg,
                                                   device)
@@ -211,7 +211,7 @@ def phase_ft(args, results: Dict, flush, device) -> bool:
         start, curve, segments = 0, [], []
         results.update(ft_mesh_metrics(model, step_fn.volumes, base, kw,
                                        args.mesh_res, device, "ft_init"))
-        results["ft_k3_launches"] = k3.sdf_mlp_fused.launches - k3_before
+        results["ft_k3_launches"] = counter("k3.launches") - k3_before
         flush()
     batches = ft_batches(base, kw, hw, args.rays, device)
     end = args.steps_ft if args.stop_at is None else min(args.stop_at,
@@ -235,11 +235,11 @@ def phase_ft(args, results: Dict, flush, device) -> bool:
         print(f"[ft] stopped at step {done} of {args.steps_ft}; the next "
               f"call resumes {inflight}", flush=True)
         return False
-    k3_before = k3.sdf_mlp_fused.launches
+    k3_before = counter("k3.launches")
     results.update(ft_mesh_metrics(model, step_fn.volumes, base, kw,
                                    args.mesh_res, device, "ft"))
     results["ft_k3_launches"] = (results.get("ft_k3_launches", 0)
-                                 + k3.sdf_mlp_fused.launches - k3_before)
+                                 + counter("k3.launches") - k3_before)
     save_params_checkpoint(ckpt_path(args, "ft"), done, model,
                            params=finetune_params_to_jax(model,
                                                          _arrays(step_fn)))

@@ -86,6 +86,7 @@ import torch
 
 from gens_torch.config import Config
 from gens_torch.eval.quality import eval_scene, scene_params
+from gens_torch.utils.profiling import counter
 
 CURVE_EVERY = 25
 CURVE_KEYS = ("loss", "psnr", "eikonal_loss", "color_loss", "mfc_loss",
@@ -239,9 +240,7 @@ def train_segment(step_call: Callable, batches: Sequence[Dict],
     ``save_every`` steps before the segment's end. Returns the segment:
     its steps, ms a step, first step's seconds, K1 launches, peak device
     memory and card."""
-    from gens_torch.ops import splat as k1
-
-    k1_before = k1.splat_bilinear.launches
+    k1_before = counter("k1.launches")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
@@ -273,7 +272,7 @@ def train_segment(step_call: Callable, batches: Sequence[Dict],
           f"{t_compile:.1f}s, {ms_per_step:.1f} ms/step", flush=True)
     return {"start": start, "end": end, "ms_per_step": ms_per_step,
             "compile_s": t_compile,
-            "k1_launches": k1.splat_bilinear.launches - k1_before,
+            "k1_launches": counter("k1.launches") - k1_before,
             "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                             if device.type == "cuda" else None),
             "card": card_line(device)}
@@ -375,17 +374,15 @@ def inflight_path(args, tag: str) -> str:
 def _evaluate(model, args, results, flush, device, tags) -> int:
     """``eval_scene`` of each (tag, scene), flushed after each; returns
     K3's launches in them."""
-    from gens_torch.ops import fused_mlp as k3
-
     model.eval()
-    before = k3.sdf_mlp_fused.launches
+    before = counter("k3.launches")
     for tag, scene in tags:
         results.update(eval_scene(model, scene_params(scene), tag,
                                   frame(args), device, args.mesh_res,
                                   n_views=args.eval_views,
                                   spread=args.spread))
         flush()
-    return k3.sdf_mlp_fused.launches - before
+    return counter("k3.launches") - before
 
 
 def phase_a(args, results: Dict, flush, device) -> bool:

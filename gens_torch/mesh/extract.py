@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gens_torch.mesh.isosurface import marching_tetrahedra
+from gens_torch.utils.profiling import span
 
 
 def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
@@ -36,14 +37,16 @@ def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
     chunk = block ** 3
     x0, x1 = x_range if x_range is not None else (0, resolution)
     out = np.empty((x1 - x0, resolution, resolution), np.float32)
-    for xs in range(x0, x1, block):
-        gx, gy, gz = torch.meshgrid(axes[0][xs:xs + block], axes[1], axes[2],
-                                    indexing="ij")
-        pts = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
-        vals = torch.cat([sdf_fn(pts[i:i + chunk])
-                          for i in range(0, pts.shape[0], chunk)])
-        out[xs - x0:xs - x0 + block] = (-vals).reshape(
-            block, resolution, resolution).cpu().numpy()
+    with span("gens/mesh/grid"):
+        for xs in range(x0, x1, block):
+            gx, gy, gz = torch.meshgrid(axes[0][xs:xs + block], axes[1],
+                                        axes[2], indexing="ij")
+            pts = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+            vals = torch.cat([sdf_fn(pts[i:i + chunk])
+                              for i in range(0, pts.shape[0], chunk)])
+            with span("gens/mesh/copy"):
+                out[xs - x0:xs - x0 + block] = (-vals).reshape(
+                    block, resolution, resolution).cpu().numpy()
     return out
 
 
@@ -52,7 +55,8 @@ def grid_to_mesh(grid: np.ndarray, bound_min, bound_max
     """Marching tetrahedra on a full -sdf grid at level 0, vertices rescaled
     to the bounds. Returns (vertices (V, 3) float32, triangles (T, 3))."""
     resolution = grid.shape[0]
-    verts, tris = marching_tetrahedra(grid, 0.0)
+    with span("gens/mesh/isosurface"):
+        verts, tris = marching_tetrahedra(grid, 0.0)
     bmin = np.asarray(bound_min, np.float32)
     bmax = np.asarray(bound_max, np.float32)
     if len(verts):

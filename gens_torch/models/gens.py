@@ -48,6 +48,7 @@ from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.models.volume import AdaptiveAgg, agg_mean_var, voxel_grid
 from gens_torch.ops.interp import combine_mask_cascade
 from gens_torch.parallel.collectives import all_gather_views
+from gens_torch.utils.profiling import span
 
 
 class GenSModel(nn.Module):
@@ -100,24 +101,28 @@ class GenSModel(nn.Module):
         view ``group`` passed on) or the adaptive aggregation, then the
         U-Net."""
         v = self.cfg.volume
-        if self.agg is not None:
-            if group is not None:
-                # the JAX aggregation has no view axis: a rank would weight
-                # its own views alone (ROADMAP.md C)
-                raise ValueError("volume.agg: adaptive has no view axis; "
-                                 "it runs under parallel.view = 1 only")
-            raw_vols, mask_vols = self.agg(features, intrs, c2ws,
-                                           v.volume_dims,
-                                           min_vis_view=v.min_vis_view)
-        else:
-            raw_vols, mask_vols = agg_mean_var(
-                features, intrs, c2ws, v.volume_dims,
-                min_vis_view=v.min_vis_view,
-                out_dtype=torch.bfloat16 if v.dtype == "bfloat16" else None,
-                packed_bilerp=v.packed_bilerp,
-                splat_mm_dtype=v.splat_mm_dtype, splat_impl=v.splat_impl,
-                view_valid=view_valid, group=group)
-        return self.reg(raw_vols), mask_vols
+        if self.agg is not None and group is not None:
+            # the JAX aggregation has no view axis: a rank would weight its
+            # own views alone (ROADMAP.md C)
+            raise ValueError("volume.agg: adaptive has no view axis; it "
+                             "runs under parallel.view = 1 only")
+        with span("gens/build_scene/aggregate"):
+            if self.agg is not None:
+                raw_vols, mask_vols = self.agg(features, intrs, c2ws,
+                                               v.volume_dims,
+                                               min_vis_view=v.min_vis_view)
+            else:
+                raw_vols, mask_vols = agg_mean_var(
+                    features, intrs, c2ws, v.volume_dims,
+                    min_vis_view=v.min_vis_view,
+                    out_dtype=torch.bfloat16 if v.dtype == "bfloat16"
+                    else None,
+                    packed_bilerp=v.packed_bilerp,
+                    splat_mm_dtype=v.splat_mm_dtype,
+                    splat_impl=v.splat_impl, view_valid=view_valid,
+                    group=group)
+        with span("gens/build_scene/reg"):
+            return self.reg(raw_vols), mask_vols
 
     def build_scene(self, imgs: torch.Tensor, intrs: torch.Tensor,
                     c2ws: torch.Tensor,
@@ -128,8 +133,9 @@ class GenSModel(nn.Module):
         zero on padding): the volumes come from the group's sums, and the
         scene holds the group's features, images and cameras gathered in
         rank order and cut to the first ``n_views``."""
-        features = self.extract_features(imgs)
-        match_features = self.extract_features(imgs, match=True)
+        with span("gens/build_scene/features"):
+            features = self.extract_features(imgs)
+            match_features = self.extract_features(imgs, match=True)
         volumes, mask_vols = self.build_volumes(features, intrs, c2ws,
                                                 view_valid, group)
         if group is not None:

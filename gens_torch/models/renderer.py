@@ -29,6 +29,7 @@ from gens_torch.ops.interp import (combine_mask_cascade, lookup_mask,
 from gens_torch.ops.projection import (apply_linear, lookup_feature,
                                        surface_patch_warp)
 from gens_torch.ops.sampling import SDF_SENTINEL, hierarchical_sample
+from gens_torch.utils.profiling import span
 
 
 @dataclass
@@ -345,14 +346,16 @@ class Renderer:
             sparse_pts = sparse_pts.to(rays_o.device)
         if perturb_noise is not None:
             perturb_noise = perturb_noise.to(rays_o.device)
-        z_vals = hierarchical_sample(
-            rays_o, rays_d, near, far, self.sdf_fn(scene.volumes),
-            scene.mask(), cfg.n_samples, cfg.n_importance,
-            cfg.up_sample_steps, perturb_noise=perturb_noise)
-        return self.render_core(rays_o, rays_d, z_vals, sample_dist, scene,
-                                cos_anneal_ratio, train=train,
-                                use_match_features=use_match_features,
-                                sparse_pts=sparse_pts)
+        with span("gens/render/sampler"):
+            z_vals = hierarchical_sample(
+                rays_o, rays_d, near, far, self.sdf_fn(scene.volumes),
+                scene.mask(), cfg.n_samples, cfg.n_importance,
+                cfg.up_sample_steps, perturb_noise=perturb_noise)
+        with span("gens/render/core"):
+            return self.render_core(rays_o, rays_d, z_vals, sample_dist,
+                                    scene, cos_anneal_ratio, train=train,
+                                    use_match_features=use_match_features,
+                                    sparse_pts=sparse_pts)
 
     def pseudo_sdf(self, scene: Scene, pseudo_pts: torch.Tensor
                    ) -> torch.Tensor:

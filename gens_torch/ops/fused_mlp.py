@@ -8,7 +8,8 @@ Counterpart of gens_tpu/ops/pallas_mlp.py (``sdf_mlp_fused``,
 :func:`sdf_mlp_plain` only for tensors on the CPU; any other device raises.
 The kernel is compiled at first use with ``nvcc`` from ``csrc/sdf_mlp.cu``
 into ``build/gens_torch/`` (named by the hash of the source and its
-headers) and loaded with ctypes. ``sdf_mlp_fused.launches`` counts kernel launches.
+headers) and loaded with ctypes. The counter ``k3.launches``
+(``utils/profiling.py``) counts kernel launches.
 
 The kernel multiplies in 3xTF32: each operand v is split into
 ``hi = tf32_rna(v)`` and ``lo = tf32_rna(v - hi)`` and the product taken as
@@ -27,6 +28,7 @@ import torch
 
 from gens_torch.config import SDFNetConfig
 from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils.profiling import count, span
 
 _INV_SQRT2 = 0.70710678118654752
 TC_N = 136   # the kernel's wgmma width: every layer's outputs padded to it
@@ -188,7 +190,7 @@ def _launch(fm: FoldedMLP, x_pe: torch.Tensor, feats_pe: torch.Tensor
         ints(*fm.skip), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
-    sdf_mlp_fused.launches += 1
+    count("k3.launches")
     return out
 
 
@@ -205,20 +207,21 @@ def sdf_mlp_fused(fm: FoldedMLP, x_pe: torch.Tensor,
     raise ValueError(f"K3 has no path for device {x_pe.device}")
 
 
-sdf_mlp_fused.launches = 0
-
-
 def sdf_fused_fn(sdf_net, volumes, fm: Optional[FoldedMLP] = None):
     """Gradient-free ``pts (N, 3) -> sdf (N,)`` for dense grid evaluation:
-    cascade lookup + PE in torch, the MLP through :func:`sdf_mlp_fused`."""
+    cascade lookup + PE in torch (span ``gens/sdf/lookup``), the MLP
+    through :func:`sdf_mlp_fused` (span ``gens/sdf/mlp``)."""
     if fm is None:
         fm = fold_sdf_mlp(sdf_net, device=volumes[0].device)
     scale = sdf_net.cfg.scale
 
     def f(pts):
         with torch.no_grad():
-            x_pe, feats_pe = sdf_net.encode(pts, volumes)
-            out = sdf_mlp_fused(fm, x_pe.contiguous(), feats_pe.contiguous())
-            return out[:, 0] / scale
+            with span("gens/sdf/lookup"):
+                x_pe, feats_pe = sdf_net.encode(pts, volumes)
+            with span("gens/sdf/mlp"):
+                out = sdf_mlp_fused(fm, x_pe.contiguous(),
+                                    feats_pe.contiguous())
+                return out[:, 0] / scale
 
     return f

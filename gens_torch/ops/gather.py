@@ -22,8 +22,9 @@ them, in the kernels and in the plain versions alike.
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for tensors on the CPU; any other device raises. The kernels
 are compiled at first use with ``nvcc`` from ``csrc/gather_probe.cu`` into
-``build/gens_torch/`` and loaded with ctypes. ``<wrapper>.launches`` counts
-kernel launches.
+``build/gens_torch/`` and loaded with ctypes. The counters ``p1.launches``,
+``p2.launches`` and ``p3.launches`` (``utils/profiling.py``) count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Optional
 import torch
 
 from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils.profiling import count
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the plain one-hot product builds its f32 one-hot (indices x table rows)
@@ -115,8 +117,8 @@ def copy_plan(row_bytes: int, *ptrs: int):
     return grain, group
 
 
-def _row_gather(table: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tensor:
-    name = wrapper.__name__
+def _row_gather(table: torch.Tensor, idx: torch.Tensor, name: str,
+                counter: str) -> torch.Tensor:
     _check(table, idx, name)
     if idx.device.type == "cpu":
         return row_gather_plain(table, idx)
@@ -133,7 +135,7 @@ def _row_gather(table: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tensor
         torch.cuda.current_stream(idx.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    wrapper.launches += 1
+    count(counter)
     return out
 
 
@@ -141,14 +143,14 @@ def row_gather_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P1, ``jnp.take(table, idx, axis=0)``: (N, W) in the table's dtype.
     CUDA tensors launch the row-gather kernel; CPU tensors take
     :func:`row_gather_plain`."""
-    return _row_gather(table, idx, row_gather_take)
+    return _row_gather(table, idx, "row_gather_take", "p1.launches")
 
 
 def row_gather_take_along(table: torch.Tensor, idx: torch.Tensor
                           ) -> torch.Tensor:
     """P2, ``take_along_axis(table, broadcast(idx[:, None]), axis=0)``: the
     same function and kernel as :func:`row_gather_take`, counted apart."""
-    return _row_gather(table, idx, row_gather_take_along)
+    return _row_gather(table, idx, "row_gather_take_along", "p2.launches")
 
 
 def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -174,10 +176,5 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(idx.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"onehot_gather launch failed: CUDA error {rc}")
-    onehot_gather.launches += 1
+    count("p3.launches")
     return out
-
-
-row_gather_take.launches = 0
-row_gather_take_along.launches = 0
-onehot_gather.launches = 0

@@ -3,7 +3,9 @@ NeuS hierarchical up-sampling loop (counterpart of gens_tpu/ops/sampling.py).
 
 Out-of-volume points are evaluated densely and overwritten with the
 sentinel ``SDF_SENTINEL``, as in the JAX package, so every round keeps
-static shapes.
+static shapes. While spans record, the counters ``sampler.sdf_points`` and
+``sampler.sdf_live`` count the points the sampler evaluates and those of
+them inside the voxel mask.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from gens_torch.ops.interp import lookup_mask
+from gens_torch.utils import profiling
 
 # out-of-volume SDF sentinel
 SDF_SENTINEL = 100.0
@@ -119,6 +122,10 @@ def hierarchical_sample(rays_o: torch.Tensor, rays_d: torch.Tensor,
 
         def masked_sdf(p):
             m = lookup_mask(mask_any, p)
+            if profiling.enabled():
+                # the waste ratio: every point outside the mask is thrown away
+                profiling.count("sampler.sdf_points", p.shape[0])
+                profiling.count("sampler.sdf_live", (m > 0).sum())
             s = sdf_fn(p).float()
             return torch.where(m > 0, s, torch.full_like(s, SDF_SENTINEL)), m
 

@@ -17,7 +17,8 @@ bf16(hat_u). ``"float32"`` is the exact adjoint.
 
 :func:`splat_bilinear` launches the kernel for CUDA tensors and takes
 :func:`splat_plain` only for tensors on the CPU; any other device raises.
-``splat_bilinear.launches`` counts kernel launches. Its ``dim`` says that
+The counter ``k1.launches`` (``utils/profiling.py``) counts kernel
+launches. Its ``dim`` says that
 the queries are the aggregation's dim³ voxel grid, which the kernel walks
 in 8³ bricks (:func:`brick_counts` reads how many took the shared tile).
 
@@ -40,6 +41,7 @@ import torch
 from gens_torch.ops.cuda_build import build_library
 from gens_torch.ops.interp import bilerp
 from gens_torch.ops.window_fwd import bilerp_window_fwd
+from gens_torch.utils.profiling import count, span
 
 MM_DTYPES = ("float32", "bfloat16")
 LAYOUTS = ("fused_u", "per_channel")
@@ -176,7 +178,7 @@ def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
         stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
-    splat_bilinear.launches += 1
+    count("k1.launches")
     return out
 
 
@@ -195,9 +197,6 @@ def splat_bilinear(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
     if xy.device.type == "cpu":
         return splat_plain(xy, ct, hw, mm_dtype, layout)
     raise ValueError(f"K1 has no path for device {xy.device}")
-
-
-splat_bilinear.launches = 0
 
 
 class BilerpAggSplat(torch.autograd.Function):
@@ -239,8 +238,9 @@ class BilerpAggSplat(torch.autograd.Function):
         xy, ct = xy.contiguous(), ct.float().contiguous()
         if BilerpAggSplat.on_backward is not None:
             BilerpAggSplat.on_backward(xy, ct, ctx.hw, ctx.mm_dtype, ctx.dim)
-        dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype, ctx.layout,
-                              ctx.dim)
+        with span("gens/backward/splat"):
+            dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype, ctx.layout,
+                                  ctx.dim)
         return dimg, None, None, None, None
 
 

@@ -19,7 +19,8 @@ coordinate, gives exactly 0.
 
 :func:`bilerp_window_fwd` launches the kernel for CUDA tensors and takes
 :func:`window_fwd_plain` only for tensors on the CPU; any other device
-raises. ``bilerp_window_fwd.launches`` counts kernel launches.
+raises. The counter ``k2.launches`` (``utils/profiling.py``) counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Optional
 import torch
 
 from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils.profiling import count
 
 MM_DTYPES = ("float32", "bfloat16")
 
@@ -123,7 +125,7 @@ def _launch(image: torch.Tensor, xy: torch.Tensor,
         int(mm_dtype == "bfloat16"), stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
-    bilerp_window_fwd.launches += 1
+    count("k2.launches")
     return out
 
 
@@ -138,6 +140,3 @@ def bilerp_window_fwd(image: torch.Tensor, xy: torch.Tensor,
     if xy.device.type == "cpu":
         return window_fwd_plain(image, xy, mm_dtype)
     raise ValueError(f"K2 has no path for device {xy.device}")
-
-
-bilerp_window_fwd.launches = 0

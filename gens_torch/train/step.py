@@ -34,13 +34,13 @@ from gens_torch.convert import FINETUNE_MODULES
 from gens_torch.losses import compute_losses
 from gens_torch.models.gens import GenSModel
 from gens_torch.train.schedule import warmup_cosine_factor
+from gens_torch.utils import profiling
+from gens_torch.utils.profiling import span
 
 # top-level module -> optimizer group
 GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
           "feature": "feat", "agg": "feat", "reg": "feat"}
-# the sharded step's backward phase includes the gradient all-reduce
-PHASES = ("build_scene", "render", "backward", "optimizer")
-FINETUNE_PHASES = ("render", "backward", "optimizer")
+SAMPLER_COUNTS = ("sampler.sdf_points", "sampler.sdf_live")
 
 
 def param_groups(model: GenSModel, tcfg: TrainConfig) -> List[Dict]:
@@ -100,38 +100,32 @@ def sync_match_features(model: GenSModel) -> None:
     model.match_feature.load_state_dict(model.feature.state_dict())
 
 
-class _Marks:
-    """Phase boundaries: CUDA events on the card, the host clock on the
-    CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-        self.mark()
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def ms(self) -> List[float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b)
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+def _phase_ms(rec: profiling.recording, counts0: List[int],
+              enqueue_ms: float) -> Dict[str, float]:
+    """The step's ``phase_ms``: device ms of each phase and of each span
+    inside it, summed over the step; ``enqueue``, the host ms from the
+    step's entry to the end of its last phase; and the sampler's live
+    share, the % of the points its SDF evaluates that lie inside the voxel
+    mask."""
+    out = profiling.span_ms(rec.records())
+    out["enqueue"] = enqueue_ms
+    points, live = (profiling.counter(n) - c
+                    for n, c in zip(SAMPLER_COUNTS, counts0))
+    if points:
+        out["render/sampler/live_share"] = 100.0 * live / points
+    return out
 
 
 class TrainStep:
     """``step(inputs, cos_anneal_ratio, use_match_features, ...)`` runs one
     update of ``model`` and returns its metrics as 0-d tensors (the losses,
     ``psnr`` and ``s_val``). After the call the parameters' ``.grad`` hold
-    this step's gradients. With ``timing=True`` the metrics also hold
-    ``phase_ms``: milliseconds of build_scene, render (with the losses),
-    backward and the optimizer update.
+    this step's gradients. With ``timing=True`` the step's spans record
+    (``utils/profiling.py``) and the metrics also hold ``phase_ms``: device
+    milliseconds of build_scene, render (with the losses), backward and
+    the optimizer update (with the scheduler), of each span inside them
+    (``build_scene/features``, ``render/sampler``, ...), ``enqueue`` and
+    ``render/sampler/live_share`` (see :func:`_phase_ms`).
 
     The sharded step (``parallel/sharded.py``) overrides the hooks
     ``_scene``, ``_losses``, ``_psnr``, ``_reduce_grads`` and
@@ -150,34 +144,35 @@ class TrainStep:
                  perturb_noise: Optional[torch.Tensor] = None,
                  sparse_pts: Optional[torch.Tensor] = None,
                  timing: bool = False) -> Dict:
+        t_entry = time.perf_counter_ns()
         model = self.model
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        marks = _Marks(inputs["imgs"].device) if timing else None
-        scene, inputs = self._scene(inputs)
-        if marks:
-            marks.mark()
-        outputs = model.render_train(scene, inputs, cos_anneal_ratio,
-                                     use_match_features, generator,
-                                     perturb_noise, sparse_pts)
-        losses = self._losses(outputs, inputs)
-        if marks:
-            marks.mark()
-        losses["loss"].backward()
-        self._reduce_grads()
-        if marks:
-            marks.mark()
-        self.optimizer.step()
-        self.scheduler.step()
-        if marks:
-            marks.mark()
+        counts0 = [profiling.counter(n) for n in SAMPLER_COUNTS] \
+            if timing else None
+        with profiling.recording(timing) as rec:
+            with span("gens/step/build_scene"):
+                scene, inputs = self._scene(inputs)
+            with span("gens/step/render"):
+                outputs = model.render_train(scene, inputs, cos_anneal_ratio,
+                                             use_match_features, generator,
+                                             perturb_noise, sparse_pts)
+                losses = self._losses(outputs, inputs)
+            # the sharded step's backward phase includes the all-reduce
+            with span("gens/step/backward"):
+                losses["loss"].backward()
+                self._reduce_grads()
+            with span("gens/step/optimizer"):
+                self.optimizer.step()
+                self.scheduler.step()
+        enqueue_ms = (time.perf_counter_ns() - t_entry) * 1e-6
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["psnr"] = self._psnr(outputs["color_fine"].detach(),
                                      inputs["color"])
         metrics["s_val"] = outputs["s_val"].detach().mean()
         metrics = self._reduce_metrics(metrics)
-        if marks:
-            metrics["phase_ms"] = dict(zip(PHASES, marks.ms()))
+        if timing:
+            metrics["phase_ms"] = _phase_ms(rec, counts0, enqueue_ms)
         return metrics
 
     def _scene(self, inputs: Dict[str, torch.Tensor]):
@@ -205,9 +200,8 @@ class FinetuneStep:
     (``inputs`` with ``view_ids``) runs one update of the volumes and of
     the model's sdf, blending and variance modules and returns the losses
     and ``psnr`` as 0-d tensors; ``.grad`` then holds this step's
-    gradients. With ``timing=True`` the metrics also hold ``phase_ms``:
-    milliseconds of render (with the losses), backward and the optimizer
-    update."""
+    gradients. With ``timing=True`` the metrics also hold ``phase_ms``, as
+    :class:`TrainStep`'s without build_scene."""
 
     def __init__(self, model: GenSModel, cfg: Config,
                  volumes: Sequence[torch.Tensor],
@@ -227,25 +221,26 @@ class FinetuneStep:
                  perturb_noise: Optional[torch.Tensor] = None,
                  sparse_pts: Optional[torch.Tensor] = None,
                  timing: bool = False) -> Dict:
+        t_entry = time.perf_counter_ns()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        marks = _Marks(inputs["imgs"].device) if timing else None
-        outputs = self.model.forward_finetune(
-            self.volumes, self.mask_volumes, self.features, inputs,
-            cos_anneal_ratio, generator, perturb_noise, sparse_pts)
-        losses = compute_losses(outputs, inputs, self.cfg.train.loss)
-        if marks:
-            marks.mark()
-        losses["loss"].backward()
-        if marks:
-            marks.mark()
-        self.optimizer.step()
-        self.scheduler.step()
-        if marks:
-            marks.mark()
+        counts0 = [profiling.counter(n) for n in SAMPLER_COUNTS] \
+            if timing else None
+        with profiling.recording(timing) as rec:
+            with span("gens/step/render"):
+                outputs = self.model.forward_finetune(
+                    self.volumes, self.mask_volumes, self.features, inputs,
+                    cos_anneal_ratio, generator, perturb_noise, sparse_pts)
+                losses = compute_losses(outputs, inputs, self.cfg.train.loss)
+            with span("gens/step/backward"):
+                losses["loss"].backward()
+            with span("gens/step/optimizer"):
+                self.optimizer.step()
+                self.scheduler.step()
+        enqueue_ms = (time.perf_counter_ns() - t_entry) * 1e-6
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["psnr"] = psnr(outputs["color_fine"].detach(),
                                inputs["color"])
-        if marks:
-            metrics["phase_ms"] = dict(zip(FINETUNE_PHASES, marks.ms()))
+        if timing:
+            metrics["phase_ms"] = _phase_ms(rec, counts0, enqueue_ms)
         return metrics

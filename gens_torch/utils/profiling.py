@@ -1,81 +1,245 @@
-"""Profiling hooks (counterpart of gens_tpu/utils/profiling.py):
+"""The port's tracer: spans and counters in one place, and the device's
+memory.
 
-* :func:`trace` records the enclosed block with ``torch.profiler`` (the
-  host, and the card when there is one) and writes a Chrome trace,
-  ``<logdir>/trace.json`` (Perfetto or chrome://tracing read it);
-* :class:`PhaseTimer` sums wall-clock time per named phase, waiting for the
-  card when the phase's ``sync_value`` holds CUDA tensors;
+* :func:`span` marks a layer of the work under a path ``gens/<phase>/<layer>``
+  (``gens/step/<phase>`` for the training step's own phases). Off, the
+  default, it is one check and a shared object that does nothing. On, it
+  records its path, its parent, its thread, its host start and end
+  (``perf_counter_ns``) and its device start and end: pooled CUDA events on
+  the current stream once CUDA is in use, the host clock before that.
+  Each thread keeps its own stack of open spans; a span opened with none
+  open on its thread (the K1 splat in autograd's backward thread) takes the
+  open phase, the root span of another thread, as its parent. Finished
+  spans go to a bounded log that :func:`records` reads; the device times
+  are read there, which waits for each span's last event, so nothing on
+  the traced path waits.
+* While a torch profiler records, each span also opens
+  ``record_function(<path>)``: its name sits on the profiler's timeline
+  beside the kernels, and a reader of the trace can name the device's idle
+  gaps by it.
+* Spans are on inside :class:`recording` (``TrainStep(timing=True)`` and
+  ``FinetuneStep(timing=True)``) and while a torch profiler records.
+  Nothing else turns them on.
+* :func:`count` adds to a counter of one registry. A count given as an
+  int is a plain add (the kernels' launches, always on); one given as a
+  0-d device tensor (a reduction, made only while :func:`enabled`) waits
+  until :func:`counter` reads it.
 * :func:`device_memory_stats` reads the caching allocator's usage of a
   CUDA device, and returns None for any other device.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from collections import deque
+from typing import Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
+
+LOG_SIZE = 1 << 15
+
+_on = 0                       # open recording blocks
+_on_lock = threading.Lock()
+_phase: Optional["Span"] = None   # the open root span
+_local = threading.local()
+_log: deque = deque(maxlen=LOG_SIZE)
+_seq = itertools.count(1)
+_events: List[torch.cuda.Event] = []   # free timing events
+_counts: Dict[str, int] = {}
+_pending: Dict[str, List[torch.Tensor]] = {}
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Profile the enclosed block; yields the profiler. The trace is
-    written to ``<logdir>/trace.json`` when the block ends."""
-    from torch.profiler import ProfilerActivity, profile
+class _Off:
+    """What :func:`span` returns while spans are off."""
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
-def _cuda_devices(value) -> set:
-    """The CUDA devices of the tensors in a tensor, list, tuple or dict."""
-    if torch.is_tensor(value):
-        return {value.device} if value.is_cuda else set()
-    if isinstance(value, dict):
-        value = list(value.values())
-    if isinstance(value, (list, tuple)):
-        return set().union(*(_cuda_devices(v) for v in value)) if value \
-            else set()
-    return set()
+_OFF = _Off()
 
 
-class PhaseTimer:
-    """Accumulates wall-clock seconds per named phase; with ``sync`` on, a
-    phase waits for the devices of its ``sync_value`` before it stops the
-    clock, so the time covers the work it queued."""
+def enabled() -> bool:
+    """Whether spans record now."""
+    return bool(_on) or _profiler._is_profiler_enabled
 
-    def __init__(self, sync: bool = True):
-        self.sync = sync
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def phase(self, name: str, sync_value=None):
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            for dev in _cuda_devices(sync_value):
-                torch.cuda.synchronize(dev)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+def span(path: str):
+    """``with span("gens/render/sampler"):`` -- a no-op while spans are
+    off."""
+    if _on or _profiler._is_profiler_enabled:
+        return Span(path)
+    return _OFF
 
-    def summary(self) -> Dict[str, float]:
-        """Mean seconds per call of each phase."""
-        return {k: self.totals[k] / max(self.counts[k], 1)
-                for k in self.totals}
 
-    def report(self) -> str:
-        return "\n".join(
-            f"  {k}: {v * 1e3:.1f} ms/call ({self.counts[k]} calls)"
-            for k, v in sorted(self.summary().items()))
+def _stack() -> List["Span"]:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def _event() -> torch.cuda.Event:
+    try:
+        return _events.pop()
+    except IndexError:
+        return torch.cuda.Event(enable_timing=True)
+
+
+class Span:
+    """One finished (or open) span. ``parent`` is the enclosing span or
+    None for a root; ``seq`` orders finished spans; ``host_ms`` and
+    ``device_ms`` are its durations on the two clocks."""
+
+    __slots__ = ("path", "parent", "thread", "seq", "t0", "t1", "_ev0",
+                 "_ev1", "_device_ms", "_rf")
+
+    def __init__(self, path: str):
+        self.path = path
+        self.seq = 0
+        self._device_ms = None
+
+    def __enter__(self):
+        global _phase
+        stack = _stack()
+        if stack:
+            self.parent = stack[-1]
+        else:
+            self.parent = _phase
+            if _phase is None:
+                _phase = self
+        self.thread = threading.get_ident()
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.path)
+            self._rf.__enter__()
+        self._ev0 = self._ev1 = None
+        if torch.cuda.is_initialized():
+            self._ev0 = _event()
+            self._ev0.record()
+        stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _phase
+        self.t1 = time.perf_counter_ns()
+        if self._ev0 is not None:
+            self._ev1 = _event()
+            self._ev1.record()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        _stack().pop()
+        if _phase is self:
+            _phase = None
+        self.seq = next(_seq)
+        _log.append(self)
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1 - self.t0) * 1e-6
+
+    @property
+    def device_ms(self) -> float:
+        """Milliseconds between the span's device events (waits for the
+        last one); the host clock's where it has none."""
+        if self._device_ms is None:
+            if self._ev0 is None:
+                self._device_ms = self.host_ms
+            else:
+                self._ev1.synchronize()
+                self._device_ms = self._ev0.elapsed_time(self._ev1)
+                _events.extend((self._ev0, self._ev1))
+                self._ev0 = self._ev1 = None
+        return self._device_ms
+
+    @property
+    def root(self) -> "Span":
+        r = self
+        while r.parent is not None:
+            r = r.parent
+        return r
+
+
+def records(since: int = 0) -> List[Span]:
+    """The finished spans of the log (the newest ``LOG_SIZE``) whose
+    ``seq`` is above ``since``, oldest first, their device times read."""
+    out = [r for r in list(_log) if r.seq > since]
+    for r in out:
+        r.device_ms
+    return out
+
+
+class recording:
+    """Spans on for the block (``on`` False: the block as it is);
+    ``records()`` then gives the spans that finished inside it."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+        self.first = self.last = 0
+
+    def __enter__(self):
+        global _on
+        if self.on:
+            with _on_lock:
+                _on += 1
+            self.first = next(_seq)
+        return self
+
+    def __exit__(self, *exc):
+        global _on
+        if self.on:
+            self.last = next(_seq)
+            with _on_lock:
+                _on -= 1
+        return False
+
+    def records(self) -> List[Span]:
+        return [r for r in records(self.first) if r.seq < self.last]
+
+
+def span_ms(spans: List[Span]) -> Dict[str, float]:
+    """Device milliseconds by key, summed: a phase of the step
+    (``gens/step/<phase>``) under ``<phase>``, any other span under its
+    path without ``gens/``."""
+    out: Dict[str, float] = {}
+    for r in spans:
+        key = r.path[len("gens/"):]
+        if key.startswith("step/"):
+            key = key[len("step/"):]
+        out[key] = out.get(key, 0.0) + r.device_ms
+    return out
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` (an int, or a 0-d device tensor read later) to the
+    counter ``name``."""
+    if isinstance(n, torch.Tensor):
+        _pending.setdefault(name, []).append(n)
+    else:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counter(name: str) -> int:
+    """The counter's total; device counts still waiting are read (a
+    synchronization where there are any)."""
+    pending = _pending.get(name)
+    if pending:
+        vals = pending[:]
+        del pending[:len(vals)]
+        _counts[name] = _counts.get(name, 0) + int(torch.stack(vals).sum())
+    return _counts.get(name, 0)
 
 
 def device_memory_stats(device="cuda") -> Optional[Dict[str, float]]:

@@ -25,6 +25,7 @@ from gens_torch.ops import fused_mlp as fm
 from gens_torch.ops import gather as gk
 from gens_torch.ops import splat as k1
 from gens_torch.ops import window_fwd as k2
+from gens_torch.utils.profiling import counter
 
 ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "artifacts", "quality_gen_r05_sharpen.pkl")
@@ -53,10 +54,10 @@ def _inputs(n, seed):
 @pytest.mark.parametrize("n", [1, 63, 64, 127, 128, 129, 1000, 65537, 262144])
 def test_kernel_matches_plain(folded, n):
     x, f = _inputs(n, n)
-    before = fm.sdf_mlp_fused.launches
+    before = counter("k3.launches")
     got = fm.sdf_mlp_fused(folded, x, f)
     torch.cuda.synchronize()
-    assert fm.sdf_mlp_fused.launches == before + 1
+    assert counter("k3.launches") == before + 1
     torch.testing.assert_close(got, fm.sdf_mlp_plain(folded, x, f),
                                rtol=RTOL, atol=ATOL)
 
@@ -104,10 +105,10 @@ def test_splat_matches_plain(card, mm_dtype, n, hw, c):
     mm_dtype, _, layout = mm_dtype.partition("-")
     layout = layout or "fused_u"
     xy, ct = _queries(n, hw, c, n)
-    before = k1.splat_bilinear.launches
+    before = counter("k1.launches")
     got = k1.splat_bilinear(xy, ct, hw, mm_dtype, layout)
     torch.cuda.synchronize()
-    assert k1.splat_bilinear.launches == before + 1
+    assert counter("k1.launches") == before + 1
     ref = k1.splat_plain(xy, ct, hw, mm_dtype, layout)
     assert got.shape == (hw[0], hw[1], c)
     assert float((got - ref).abs().max()) <= K1_TOL * float(ref.abs().max())
@@ -252,10 +253,10 @@ def _image(hw, c, seed):
 def test_window_fwd_matches_plain(card, mm_dtype, n, hw, c):
     xy, _ = _queries(n, hw, 1, n)
     img = _image(hw, c, n + 1)
-    before = k2.bilerp_window_fwd.launches
+    before = counter("k2.launches")
     got = k2.bilerp_window_fwd(img, xy, mm_dtype)
     torch.cuda.synchronize()
-    assert k2.bilerp_window_fwd.launches == before + 1
+    assert counter("k2.launches") == before + 1
     ref = k2.window_fwd_plain(img, xy, mm_dtype)
     assert got.shape == (n, c) and got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= K2_TOL * float(ref.abs().max())
@@ -297,6 +298,8 @@ def test_window_fwd_wrapper_checks_inputs(card):
 # with one nonzero term summed in f32)
 GATHERS = {"take": gk.row_gather_take, "take_along": gk.row_gather_take_along,
            "onehot": gk.onehot_gather}
+GATHER_COUNTERS = {"take": "p1.launches", "take_along": "p2.launches",
+                   "onehot": "p3.launches"}
 
 
 def _gather_inputs(n, rows, width, dtype, seed):
@@ -321,10 +324,10 @@ def _plain(probe, table, idx):
 def test_gather_probe_matches_plain(card, probe, n, rows, width, dtype):
     table, idx = _gather_inputs(n, rows, width, dtype, n + rows + width)
     wrapper = GATHERS[probe]
-    before = wrapper.launches
+    before = counter(GATHER_COUNTERS[probe])
     got = wrapper(table, idx)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert counter(GATHER_COUNTERS[probe]) == before + 1
     assert got.dtype == dtype and tuple(got.shape) == (n, width)
     assert torch.equal(got, _plain(probe, table, idx))
 

@@ -23,11 +23,10 @@ from gens_tpu.train.step import make_finetune_optimizer as j_ft_optimizer
 from gens_torch.convert import finetune_params_from_jax, params_from_jax
 from gens_torch.data.synthetic import SyntheticDataset as TData
 from gens_torch.models.gens import GenSModel as TGenSModel
-from gens_torch.ops import fused_mlp as fm
-from gens_torch.ops import window_fwd as k2
 from gens_torch.train.checkpoint import (load_finetune_checkpoint,
                                          save_finetune_checkpoint)
 from gens_torch.train.step import FinetuneStep, make_finetune_optimizer
+from gens_torch.utils.profiling import counter
 
 from _torch_common import jax_init_params, t, tiny_configs, to_np_tree
 
@@ -83,11 +82,11 @@ def ft():
     out = {}
     for impl in (None, "kernel2f"):
         jcfg, jm, params, tcfg, tm = _models(impl)
-        before = k2.bilerp_window_fwd.launches
+        before = counter("k2.launches")
         with torch.no_grad():
             port = tm.init_volumes(*[t(images[k]) for k in
                                      ("imgs", "intrs", "c2ws")])
-        assert k2.bilerp_window_fwd.launches == before  # CPU: plain K2
+        assert counter("k2.launches") == before  # CPU: plain K2
         out[impl] = (_jax_init_volumes(jm, params, images),
                      [[p.numpy() for p in part] for part in port])
 
@@ -391,12 +390,12 @@ def test_main_finetune_on_cpu_then_resume(ft, tmp_path):
         pickle.dump({"epoch": 3, "step": 0, "format_version": 2,
                      "params": to_np_tree(params)}, f)
     exp = f"base_exp_dir={tmp_path / 'exp'}"
-    before = (k2.bilerp_window_fwd.launches, fm.sdf_mlp_fused.launches)
+    before = (counter("k2.launches"), counter("k3.launches"))
     runner = main(["--mode", "finetune", "--device", "cpu", "--resume",
                    str(ckpt), "--scene", "s0", "--ref_view", "4", "--set",
                    exp, "train.epochs=3"] + TINY_FT)
-    assert (k2.bilerp_window_fwd.launches,
-            fm.sdf_mlp_fused.launches) == before  # CPU: plain versions
+    assert (counter("k2.launches"),
+            counter("k3.launches")) == before  # CPU: plain versions
     steps = [st for st in runner.finetune_stats if "loss" in st]
     assert [st["step"] for st in steps] == [0, 1, 2]
     assert sorted(st["vid"] for st in steps) == [0, 1, 2]

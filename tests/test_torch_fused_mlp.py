@@ -25,6 +25,7 @@ from gens_torch.config import Config, SDFNetConfig
 from gens_torch.models.gens import GenSModel
 from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.ops import fused_mlp as fm
+from gens_torch.utils.profiling import counter
 
 from _torch_common import t
 
@@ -77,7 +78,7 @@ def test_plain_matches_pallas_interpret(small):
 
 def test_fused_fn_cpu_dispatch_with_ragged_rows(small):
     jnet, params, tnet, vols, pts = small
-    before = fm.sdf_mlp_fused.launches
+    before = counter("k3.launches")
     ref = np.asarray(j_fused_fn(params, jnet.cfg,
                                 [jnp.asarray(v) for v in vols], tile=32,
                                 interpret=True)(jnp.asarray(pts[:50])))
@@ -85,7 +86,7 @@ def test_fused_fn_cpu_dispatch_with_ragged_rows(small):
     assert got.shape == (50,)
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
     # a CPU tensor takes the plain version: no kernel launch is counted
-    assert fm.sdf_mlp_fused.launches == before
+    assert counter("k3.launches") == before
 
 
 def test_wrapper_rejects_other_devices(small):

@@ -15,6 +15,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from gens_torch.ops import gather as gk
+from gens_torch.utils.profiling import counter
 
 import _torch_common  # noqa: E402,F401  (one torch thread per worker)
 
@@ -117,9 +118,9 @@ def test_plain_matches_jax_function(probe, rows, width, dt):
     wrapper, jfn, _ = PROBES[probe]
     table_np, idx_np = _inputs(rows, width, rows + width)
     (jt, ji), (tt, ti) = _both(table_np, idx_np, dt)
-    before = wrapper.launches
+    before = counter(probe.lower() + ".launches")
     got = wrapper(tt, ti)  # CPU tensors: the plain version
-    assert wrapper.launches == before
+    assert counter(probe.lower() + ".launches") == before
     assert got.dtype == tt.dtype and tuple(got.shape) == (N, width)
     np.testing.assert_array_equal(_np(got), _np(jax.jit(jfn)(jt, ji)))
 

@@ -4,8 +4,8 @@ atol 1e-6 unless a test says otherwise: the idr colour head in its three
 modes, GlobalAttn in f32 and bf16, RegNetwork with GlobalAttn,
 RegNetworkLite, the adaptive aggregation with a voxel that no view sees,
 the MnasNet backbone (1e-4, as tests/test_mnasnet_parity.py) and its
-converter and loader, the background-sphere lookups, clean_volume and the
-profiling hooks."""
+converter and loader, the background-sphere lookups, clean_volume and
+``device_memory_stats``."""
 
 import os
 import pickle
@@ -518,30 +518,6 @@ def test_clean_volume_matches_jax():
 # -- profiling ----------------------------------------------------------------
 
 
-def test_phase_timer_on_the_cpu():
-    timer = profiling.PhaseTimer()
-    x = torch.ones(4)
-    for _ in range(3):
-        with timer.phase("add", sync_value={"y": x + 1, "z": [x]}):
-            x = x + 1
-    with timer.phase("noop"):
-        pass
-    assert timer.counts == {"add": 3, "noop": 1}
-    s = timer.summary()
-    assert set(s) == {"add", "noop"} and all(v >= 0 for v in s.values())
-    assert "add:" in timer.report() and "(3 calls)" in timer.report()
-    assert profiling._cuda_devices([x, {"a": x}, None]) == set()
-
-
 def test_device_memory_stats_is_none_off_the_card():
     assert profiling.device_memory_stats("cpu") is None
     assert profiling.device_memory_stats(torch.device("cpu")) is None
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.trace(str(tmp_path)) as prof:
-        torch.ones(8).sum()
-    assert prof is not None
-    with open(os.path.join(tmp_path, "trace.json")) as f:
-        text = f.read()
-    assert "traceEvents" in text

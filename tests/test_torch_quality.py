@@ -29,7 +29,7 @@ from gens_torch.eval import quality as tquality
 from gens_torch.mesh import clean as tclean
 from gens_torch.mesh.isosurface import marching_tetrahedra
 from gens_torch.mesh.ply import read_ply, write_ply
-from gens_torch.ops import fused_mlp as fm
+from gens_torch.utils.profiling import counter
 
 import _torch_common  # noqa: E402,F401  (one torch thread per worker)
 
@@ -260,12 +260,12 @@ def test_quality_entry_point_on_cpu(tmp_path):
     ckpt = tmp_path / "seeded.pkl"
     _write_ckpt(ckpt, tquality.build_config(32, 8))
     out = tmp_path / "q.json"
-    before = fm.sdf_mlp_fused.launches
+    before = counter("k3.launches")
     res = tquality.main(["--ckpt", str(ckpt), "--scenes", "heldout",
                          "--hw", "32", "32", "--dims", "32", "--samples", "8",
                          "--mesh-res", "32", "--device", "cpu",
                          "--out", str(out)])
-    assert fm.sdf_mlp_fused.launches == before  # CPU: the plain MLP
+    assert counter("k3.launches") == before  # CPU: the plain MLP
     assert res["config"]["volume_dims"] == [32, 16, 8, 4, 2]
     assert res["ckpt_step"] == 7 and res["params_stored_dtype"] == ["float32"]
     assert res["heldout_rays"] == 16 * 16

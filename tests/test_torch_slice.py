@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from gens_torch.models.renderer import Scene
-from gens_torch.ops import fused_mlp as fm
+from gens_torch.utils.profiling import counter
 
 from _torch_common import scene_numpy, t, tiny_models, to_np_tree
 
@@ -149,14 +149,14 @@ def test_main_val_on_cpu(setup, tmp_path):
 
     ckpt = tmp_path / "tiny.ckpt"
     _write_jax_ckpt(ckpt, setup[1])
-    before = fm.sdf_mlp_fused.launches
+    before = counter("k3.launches")
     runner = main(["--mode", "val", "--device", "cpu", "--resume", str(ckpt),
                    "--set", f"base_exp_dir={tmp_path / 'exp'}"] + TINY_SET)
     st = runner.stats[0]
     assert st["rays"] == 16 * 16 and st["render_finite"] and st["grid_finite"]
     assert np.isfinite(runner.metrics["psnr"])
     assert runner.last_sdf_grid.shape == (32, 32, 32)
-    assert fm.sdf_mlp_fused.launches == before  # CPU: plain version
+    assert counter("k3.launches") == before  # CPU: plain version
     for sub in ("meshes", "val_img", "val_normal", "val_render_depth"):
         assert os.listdir(tmp_path / "exp" / sub)
 

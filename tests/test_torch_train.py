@@ -40,6 +40,7 @@ from gens_torch.train import schedule as tsched
 from gens_torch.train.checkpoint import (load_optimizer_state,
                                          save_checkpoint)
 from gens_torch.train.step import TrainStep, make_optimizer
+from gens_torch.utils.profiling import counter
 
 from _torch_common import (jax_init_params, scene_numpy, t, tiny_configs,
                            tiny_models, to_np_tree)
@@ -485,13 +486,12 @@ TINY_TRAIN = [
 
 def test_main_train_on_cpu_then_resume_and_val(tmp_path):
     from gens_torch.main import main
-    from gens_torch.ops import splat as k1
 
     exp = f"base_exp_dir={tmp_path / 'exp'}"
-    before = k1.splat_bilinear.launches
+    before = counter("k1.launches")
     runner = main(["--mode", "train", "--device", "cpu", "--set", exp,
                    "train.epochs=1"] + TINY_TRAIN)
-    assert k1.splat_bilinear.launches == before  # CPU: the plain version
+    assert counter("k1.launches") == before  # CPU: the plain version
     (st,) = runner.train_stats
     assert st["step"] == 1 and np.isfinite(st["loss"])
     ckpt = tmp_path / "exp" / "checkpoints" / "model_000.ckpt"

@@ -24,6 +24,7 @@ from gens_torch.models.volume import aggregate_scale, splat_impl_at
 from gens_torch.ops import splat as k1
 from gens_torch.ops import window_fwd as k2
 from gens_torch.ops.splat import resolve_splat_impl
+from gens_torch.utils.profiling import counter
 
 from _torch_common import t
 
@@ -98,9 +99,9 @@ def test_window_fwd_outside_and_nonfinite_give_zero():
 
 def test_window_fwd_wrapper_device_rule(queries):
     img, xy, _, _ = queries
-    before = k2.bilerp_window_fwd.launches
+    before = counter("k2.launches")
     got = k2.bilerp_window_fwd(t(img), t(xy), "bfloat16")
-    assert k2.bilerp_window_fwd.launches == before  # CPU: the plain version
+    assert counter("k2.launches") == before  # CPU: the plain version
     torch.testing.assert_close(got, k2.window_fwd_plain(t(img), t(xy),
                                                         "bfloat16"))
     with pytest.raises(ValueError):
@@ -190,9 +191,9 @@ def test_aggregate_kernel2f_matches_jax(rig, mm):
     channels double a jump). The same xy give the same bf16 values
     (test_bilerp_agg_splat_matches_jax)."""
     jvol, jg = _jax_volume_and_grad(rig, "kernel2f", mm)
-    before = k2.bilerp_window_fwd.launches
+    before = counter("k2.launches")
     vol, g = _port_volume_and_grad(rig, "kernel2f", mm)
-    assert k2.bilerp_window_fwd.launches == before  # CPU: the plain version
+    assert counter("k2.launches") == before  # CPU: the plain version
     if mm == "float32":
         np.testing.assert_allclose(vol, jvol, rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(g, jg, rtol=1e-4,
