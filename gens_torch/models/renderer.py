@@ -140,8 +140,9 @@ class Renderer:
         return out, grad, smooth
 
     def sdf_fn_for_extraction(self, volumes):
-        """Gradient-free SDF for dense grid evaluation through K3: the CUDA
-        kernel for volumes on the card, its plain version on the CPU."""
+        """Gradient-free SDF for dense grid evaluation through K4 (lookup +
+        PE) and K3 (MLP): the CUDA kernels for volumes on the card, their
+        plain versions on the CPU."""
         return sdf_fused_fn(self.sdf, volumes)
 
     # -- core --------------------------------------------------------------

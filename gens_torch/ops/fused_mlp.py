@@ -2,7 +2,8 @@
 ``csrc/sdf_mlp.cu`` (tensor cores, 3xTF32) and its plain PyTorch version.
 
 Counterpart of gens_tpu/ops/pallas_mlp.py (``sdf_mlp_fused``,
-``sdf_fused_fn``). It serves dense SDF-grid evaluation for mesh extraction.
+``sdf_fused_fn``). It serves dense SDF-grid evaluation for mesh extraction;
+:func:`sdf_fused_fn` feeds it from K4 (``ops/cascade_pe.py``).
 
 :func:`sdf_mlp_fused` launches the kernel for CUDA tensors and takes
 :func:`sdf_mlp_plain` only for tensors on the CPU; any other device raises.
@@ -27,6 +28,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from gens_torch.config import SDFNetConfig
+from gens_torch.ops.cascade_pe import cascade_pe
 from gens_torch.ops.cuda_build import build_library
 from gens_torch.utils.profiling import count, span
 
@@ -209,19 +211,24 @@ def sdf_mlp_fused(fm: FoldedMLP, x_pe: torch.Tensor,
 
 def sdf_fused_fn(sdf_net, volumes, fm: Optional[FoldedMLP] = None):
     """Gradient-free ``pts (N, 3) -> sdf (N,)`` for dense grid evaluation:
-    cascade lookup + PE in torch (span ``gens/sdf/lookup``), the MLP
-    through :func:`sdf_mlp_fused` (span ``gens/sdf/mlp``)."""
+    cascade lookup + PE through K4 (``ops/cascade_pe.py``, span
+    ``gens/sdf/lookup``), the MLP through :func:`sdf_mlp_fused` (span
+    ``gens/sdf/mlp``). ``sdf_network.volume_dtype`` bf16 rounds the cascade
+    here, once, as ``SDFNetwork.encode`` does before its lookup."""
     if fm is None:
         fm = fold_sdf_mlp(sdf_net, device=volumes[0].device)
-    scale = sdf_net.cfg.scale
+    c = sdf_net.cfg
+    vdt = torch.bfloat16 if c.volume_dtype == "bfloat16" else None
+    volumes = [v.detach().to(vdt or v.dtype).contiguous() for v in volumes]
 
     def f(pts):
         with torch.no_grad():
             with span("gens/sdf/lookup"):
-                x_pe, feats_pe = sdf_net.encode(pts, volumes)
+                x_pe, feats_pe = cascade_pe(pts.contiguous(), volumes,
+                                            c.scale, c.multires,
+                                            c.feat_multires)
             with span("gens/sdf/mlp"):
-                out = sdf_mlp_fused(fm, x_pe.contiguous(),
-                                    feats_pe.contiguous())
-                return out[:, 0] / scale
+                out = sdf_mlp_fused(fm, x_pe, feats_pe)
+                return out[:, 0] / c.scale
 
     return f
