@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from gens_torch.config import FeatureNetConfig
 from gens_torch.models.init import lecun_normal_
+from gens_torch.utils.profiling import span
 
 
 def same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -108,12 +109,17 @@ class FeatureNetwork(nn.Module):
         self.heads = nn.ModuleList(
             SameConv2d(self.d_dec[i], d_out[i]) for i in range(len(d_out)))
 
+    @property
+    def first_weight(self) -> torch.Tensor:
+        return self.enc[0].conv.weight
+
     def forward(self, imgs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = imgs.permute(0, 3, 1, 2)
         encs = []
-        for j in range(0, len(self.enc), 2):
-            x = self.enc[j + 1](self.enc[j](x))
-            encs.append(x)
+        with span("gens/features/encoder"):
+            for j in range(0, len(self.enc), 2):
+                x = self.enc[j + 1](self.enc[j](x))
+                encs.append(x)
         decs = []
         d = encs[-1]
         n = len(encs)

@@ -48,7 +48,7 @@ from gens_torch.models.sdf_net import SDFNetwork
 from gens_torch.models.volume import AdaptiveAgg, agg_mean_var, voxel_grid
 from gens_torch.ops.interp import combine_mask_cascade
 from gens_torch.parallel.collectives import all_gather_views
-from gens_torch.utils.profiling import span
+from gens_torch.utils.profiling import backward_span, count, span
 
 
 class GenSModel(nn.Module):
@@ -87,11 +87,17 @@ class GenSModel(nn.Module):
 
     def extract_features(self, imgs: torch.Tensor, match: bool = False
                          ) -> Tuple[torch.Tensor, ...]:
-        """The matching copy is frozen: its features carry no graph."""
+        """The matching copy is frozen: its features carry no graph. The
+        views through each copy are counted (``features.views``,
+        ``features.match_views``); the trained copy's backward is the span
+        ``gens/backward/features``."""
         if match:
+            count("features.match_views", imgs.shape[0])
             with torch.no_grad():
                 return self.match_feature(imgs)
-        return self.feature(imgs)
+        count("features.views", imgs.shape[0])
+        return backward_span("gens/backward/features", self.feature(imgs),
+                             self.feature.first_weight)
 
     def build_volumes(self, features: Sequence[torch.Tensor],
                       intrs: torch.Tensor, c2ws: torch.Tensor,

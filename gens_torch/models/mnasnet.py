@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from gens_torch.config import FeatureNetConfig
 from gens_torch.models.feature_net import DeconvBlock, SameConv2d
 from gens_torch.models.init import lecun_normal_
+from gens_torch.utils.profiling import span
 
 BN_EPS = 1e-5
 
@@ -146,8 +147,14 @@ class MnasNetFeatureNetwork(nn.Module):
         for i, c in enumerate((8, 16, 24, 40, 96)):
             self.add_module(f"out_layer{i + 1}", SameConv2d(c, d_out[i]))
 
+    @property
+    def first_weight(self) -> torch.Tensor:
+        return self.encoder.stem_conv.conv.weight
+
     def forward(self, imgs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        enc1, enc2, enc3, enc4, enc5 = self.encoder(imgs.permute(0, 3, 1, 2))
+        with span("gens/features/encoder"):
+            enc1, enc2, enc3, enc4, enc5 = self.encoder(
+                imgs.permute(0, 3, 1, 2))
         dec5 = self.decod_layer5(enc5) + enc4
         dec4 = self.decod_layer4(dec5) + enc3
         dec3 = self.decod_layer3(dec4) + enc2

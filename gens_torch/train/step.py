@@ -41,6 +41,7 @@ from gens_torch.utils.profiling import span
 GROUPS = {"sdf": "mlp", "blending": "mlp", "variance": "variance",
           "feature": "feat", "agg": "feat", "reg": "feat"}
 SAMPLER_COUNTS = ("sampler.sdf_points", "sampler.sdf_live")
+FEATURE_COUNTS = ("features.views", "features.match_views")
 
 
 def param_groups(model: GenSModel, tcfg: TrainConfig) -> List[Dict]:
@@ -104,15 +105,21 @@ def _phase_ms(rec: profiling.recording, counts0: List[int],
               enqueue_ms: float) -> Dict[str, float]:
     """The step's ``phase_ms``: device ms of each phase and of each span
     inside it, summed over the step; ``enqueue``, the host ms from the
-    step's entry to the end of its last phase; and the sampler's live
-    share, the % of the points its SDF evaluates that lie inside the voxel
-    mask."""
+    step's entry to the end of its last phase; the sampler's live share,
+    the % of the points its SDF evaluates that lie inside the voxel mask;
+    and, where the step ran the feature nets, the views through the
+    trained and the frozen copy (``features/views``,
+    ``features/match_views``)."""
     out = profiling.span_ms(rec.records())
     out["enqueue"] = enqueue_ms
-    points, live = (profiling.counter(n) - c
-                    for n, c in zip(SAMPLER_COUNTS, counts0))
+    points, live, views, match_views = (
+        profiling.counter(n) - c
+        for n, c in zip(SAMPLER_COUNTS + FEATURE_COUNTS, counts0))
     if points:
         out["render/sampler/live_share"] = 100.0 * live / points
+    if views or match_views:
+        out["features/views"] = float(views)
+        out["features/match_views"] = float(match_views)
     return out
 
 
@@ -124,8 +131,9 @@ class TrainStep:
     (``utils/profiling.py``) and the metrics also hold ``phase_ms``: device
     milliseconds of build_scene, render (with the losses), backward and
     the optimizer update (with the scheduler), of each span inside them
-    (``build_scene/features``, ``render/sampler``, ...), ``enqueue`` and
-    ``render/sampler/live_share`` (see :func:`_phase_ms`).
+    (``build_scene/features``, ``render/sampler``, ...), ``enqueue``,
+    ``render/sampler/live_share`` and the views through each feature net
+    (see :func:`_phase_ms`).
 
     The sharded step (``parallel/sharded.py``) overrides the hooks
     ``_scene``, ``_losses``, ``_psnr``, ``_reduce_grads`` and
@@ -148,8 +156,8 @@ class TrainStep:
         model = self.model
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        counts0 = [profiling.counter(n) for n in SAMPLER_COUNTS] \
-            if timing else None
+        counts0 = [profiling.counter(n) for n in
+                   SAMPLER_COUNTS + FEATURE_COUNTS] if timing else None
         with profiling.recording(timing) as rec:
             with span("gens/step/build_scene"):
                 scene, inputs = self._scene(inputs)
@@ -224,8 +232,8 @@ class FinetuneStep:
         t_entry = time.perf_counter_ns()
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        counts0 = [profiling.counter(n) for n in SAMPLER_COUNTS] \
-            if timing else None
+        counts0 = [profiling.counter(n) for n in
+                   SAMPLER_COUNTS + FEATURE_COUNTS] if timing else None
         with profiling.recording(timing) as rec:
             with span("gens/step/render"):
                 outputs = self.model.forward_finetune(

@@ -20,6 +20,10 @@ memory.
 * Spans are on inside :class:`recording` (``TrainStep(timing=True)`` and
   ``FinetuneStep(timing=True)``) and while a torch profiler records.
   Nothing else turns them on.
+* :func:`backward_span` puts a span around a network's backward: it
+  opens when the gradient reaches the network's outputs and closes when
+  that of its first layer's weight is accumulated (the trained feature
+  net's ``gens/backward/features``).
 * :func:`count` adds to a counter of one registry. A count given as an
   int is a plain add (the kernels' launches, always on); one given as a
   0-d device tensor (a reduction, made only while :func:`enabled`) waits
@@ -220,6 +224,46 @@ def span_ms(spans: List[Span]) -> Dict[str, float]:
             key = key[len("step/"):]
         out[key] = out.get(key, 0.0) + r.device_ms
     return out
+
+
+class _OpenOnGrad(torch.autograd.Function):
+    """The identity on a network's outputs; its backward, which runs once
+    the gradients of all of them have arrived, opens ``span``."""
+
+    @staticmethod
+    def forward(ctx, span_, *xs):
+        ctx.span = span_
+        ctx.set_materialize_grads(False)
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.span.__enter__()
+        ctx.span = None
+        return (None,) + grads
+
+
+def backward_span(path: str, outputs, first_weight: torch.Tensor):
+    """``outputs`` (a tuple of a network's outputs) unchanged while spans
+    are off or no gradient reaches ``first_weight``. Else the same values
+    through an identity whose backward opens a span ``path`` when the
+    first gradient reaches the network's outputs; it closes when the
+    gradient of ``first_weight``, the network's first layer and so the
+    last that its backward reaches, is accumulated. Both ends run on the
+    thread that runs the backward (on CUDA autograd's own)."""
+    if not (enabled() and torch.is_grad_enabled()
+            and first_weight.requires_grad):
+        return outputs
+    s = Span(path)
+    handle = None
+
+    def close(_):
+        handle.remove()
+        if s.seq == 0 and hasattr(s, "t0"):
+            s.__exit__(None, None, None)
+
+    handle = first_weight.register_post_accumulate_grad_hook(close)
+    return _OpenOnGrad.apply(s, *outputs)
 
 
 def count(name: str, n=1) -> None:

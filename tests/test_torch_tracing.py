@@ -30,7 +30,8 @@ HW = (64, 64)
 TRAIN_KEYS = {"build_scene", "render", "backward", "optimizer",
               "build_scene/features", "build_scene/aggregate",
               "build_scene/reg", "render/sampler", "render/core", "enqueue",
-              "render/sampler/live_share"}
+              "render/sampler/live_share", "features/encoder",
+              "backward/features", "features/views", "features/match_views"}
 
 
 def _paths(spans):
