@@ -9,8 +9,8 @@ the script starts them itself.)
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds K3 (gens_torch/csrc/sdf_mlp.cu), K4
-   (gens_torch/csrc/cascade_pe.cu), K1 (gens_torch/csrc/splat.cu), K2
-   (gens_torch/csrc/window_fwd.cu) and P1-P3
+   (gens_torch/csrc/cascade_pe.cu), K5 (gens_torch/csrc/isosurface.cu), K1
+   (gens_torch/csrc/splat.cu), K2 (gens_torch/csrc/window_fwd.cu) and P1-P3
    (gens_torch/csrc/gather_probe.cu), one nvcc each, started together,
    and the native isosurface and raycaster and the zstd decoder, from the
    sources in the checkout.
@@ -21,7 +21,8 @@ the script starts them itself.)
    synthetic scene of 3 views at 480x640, val_res_level 4 (19,200 rays in
    512-ray chunks) and a 512³ mesh. The launch counters are zeroed just
    before and read just after; K3 must have launched, and K4 as often
-   (once a 64³ chunk each, here and wherever K3's count is checked below).
+   (once a 64³ chunk each, here and wherever K3's count is checked below),
+   and K5 once (once a mesh of a grid on the card, here and below).
    Then one 64-plane slab
    of the SDF grid against the plain MLP, K3 against its plain version on
    one 64³ chunk (262,144 rows) with timings (bound: the chunk's FLOP three
@@ -29,8 +30,11 @@ the script starts them itself.)
    earlier kernel printed beside it) and at n = 127, 128, 129 (one 128-row
    tile and a row either side); K4 against its plain version on the same
    chunk, f32 and bf16, timed (bound: the chunk's bytes at the HBM peak),
-   and at n = 1, 127, 128, 129; and the GPU port against the CPU port on a
-   small scene.
+   and at n = 1, 127, 128, 129; K5 on the path's 512³ grid against the
+   native host code, vertices and triangles bit-equal and in order, timed
+   (bound: one read of the grid and the mesh written at the HBM peak; the
+   host code's seconds beside it); and the GPU port against the CPU port on
+   a small scene.
 4. The train path, through ``gens_torch.main --mode train`` on confs/dtu.yaml
    from a fresh seeded init: 3 synthetic scenes of 5 views (reference + 4
    sources) at 480x640, 512 rays, one epoch = 3 steps. Counters zeroed just
@@ -56,11 +60,11 @@ the script starts them itself.)
    steps (two permutations of the views), validation at the end (512³ mesh,
    288x400 val rays). Counters zeroed just before and read just after; K2
    must have launched 15 times, all in the volume build (5 scales x 3
-   views), K3 512 times. Every loss finite, the five volumes and the sdf,
-   blending and variance modules moved, the validation's grid against the
-   plain MLP on one 64-plane slab, a surface in the mesh of the state the
-   finetune started from (its built volumes, the artifact's MLP), the
-   finetune checkpoint read back equal. init_volumes ms, per-step ms, one
+   views), K3 512 times, K5 once. Every loss finite, the five volumes and
+   the sdf, blending and variance modules moved, the validation's grid
+   against the plain MLP on one 64-plane slab, a surface in the mesh of the
+   state the finetune started from (its built volumes, the artifact's MLP),
+   the finetune checkpoint read back equal. init_volumes ms, per-step ms, one
    step's render / backward / optimizer ms (CUDA events), the validation's
    mesh and render seconds, its surface's size and margin, and the peak
    device memory.
@@ -269,8 +273,8 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_libraries(["sdf_mlp.cu", "cascade_pe.cu", "splat.cu",
-                             "window_fwd.cu", "gather_probe.cu"])
+    built = build_libraries(["sdf_mlp.cu", "cascade_pe.cu", "isosurface.cu",
+                             "splat.cu", "window_fwd.cu", "gather_probe.cu"])
     isosurface.build_library()
     clean.build_library()
     zstd.build_library()
@@ -298,6 +302,7 @@ def main() -> int:
     assert (launch_counts()["K1"], launch_counts()["K2"]) == (
         0, 0)
     assert launch_counts()["K4"] == launches, launch_counts()
+    assert launch_counts()["K5"] == 1, launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = runner.stats[0]
     cfg = runner.cfg
@@ -362,6 +367,7 @@ def main() -> int:
           f"{3 * flops / ms / 1e9:.1f} TFLOP/s of TF32 products; cascade "
           f"lookup + PE of the chunk {encode_ms:.3f} ms", flush=True)
     k4_row = k4_phase(model.sdf, scene.volumes, pts, launches)
+    k5_row = k5_phase(runner.last_sdf_grid, dev)
     print("render chunk: " + json.dumps(render_breakdown(runner)), flush=True)
 
     # -- the GPU port against the CPU port on a small scene ------------------
@@ -425,7 +431,7 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-    }, k4_row, k1_row, k2_row] + gather_rows
+    }, k4_row, k5_row, k1_row, k2_row] + gather_rows
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -491,6 +497,56 @@ def k4_phase(sdf_net, volumes, pts, launches) -> dict:
             "library_ms": None, "bf16": times["bf16"]}
 
 
+def k5_phase(grid, dev) -> dict:
+    """K5 against the native host code on ``grid``, the val path's 512³
+    grid as ``eval_sdf_grid`` returned it: vertices and triangles bit-equal
+    and in order. Timed on the grid already on the card (count, scan, the
+    totals' read, emit; CUDA events) and as ``grid_to_mesh`` runs it on the
+    host array (the upload, K5, the mesh's copy back; host clock, the best
+    of 3); bound: one read of the grid and the mesh written at the HBM peak;
+    the host code's ms as the plain column. Returns the kernel table's
+    row."""
+    from gens_torch.mesh.extract import isosurface_of
+    from gens_torch.mesh.isosurface import marching_tetrahedra
+    from gens_torch.ops import isosurface as k5
+
+    host = np.asarray(grid)
+    t0 = time.perf_counter()
+    want = marching_tetrahedra(host, 0.0)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    g = torch.from_numpy(host).to(dev)
+    got = k5.marching_tetrahedra_cuda(g)
+    assert [a.shape for a in got] == [a.shape for a in want], (
+        [a.shape for a in got], [a.shape for a in want])
+    assert np.array_equal(got[0].view(np.int32), want[0].view(np.int32))
+    assert np.array_equal(got[1], want[1])
+    ms = cuda_ms(lambda: k5.extract_on_device(g), 10)
+    upload_ms = cuda_ms(lambda: torch.from_numpy(host).to(dev), 3)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        isosurface_of(grid)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = host.nbytes + want[0].nbytes + want[1].nbytes
+    bound = n_bytes / PEAK_BYTES * 1e3
+    print(f"K5 on the {'x'.join(map(str, host.shape))} val grid: {ms:.4f} ms "
+          f"({len(want[0])} vertices, {len(want[1])} triangles), bound "
+          f"{bound:.4f} ms ({n_bytes:.4g} B at {PEAK_BYTES / 1e12:.2f} "
+          f"TB/s), host code {plain_ms:.1f} ms, bit-equal True; as "
+          f"grid_to_mesh runs it {min(walls):.1f} ms (upload "
+          f"{upload_ms:.1f} ms)", flush=True)
+    return {"name": "isosurface", "route": "cuda",
+            "source": "gens_torch/csrc/isosurface.cu",
+            "replaces": "none (native/isosurface.cpp on the host, as "
+                        "gens_tpu/mesh/isosurface.py binds it)",
+            "launches": 1, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None, "grid_to_mesh_ms": min(walls),
+            "upload_ms": upload_ms, "n_verts": len(want[0]),
+            "n_tris": len(want[1])}
+
+
 def k3_slab_err(sdf_net, volumes, grid, dev) -> float:
     """Max |K3 - plain| over the x = 256:320 slab of a 512³ mesh grid on
     [-1, 1]³ (``grid``, the path's K3 grid), the plain MLP on the same
@@ -511,16 +567,17 @@ def k3_slab_err(sdf_net, volumes, grid, dev) -> float:
     return float(np.abs(slab - grid[256:320]).max())
 
 
-KERNELS = {"K3": "k3.launches", "K4": "k4.launches", "K1": "k1.launches",
-           "K2": "k2.launches",
+KERNELS = {"K3": "k3.launches", "K4": "k4.launches", "K5": "k5.launches",
+           "K1": "k1.launches", "K2": "k2.launches",
            "P1": "p1.launches", "P2": "p2.launches", "P3": "p3.launches"}
 _ZERO = {}
 
 
-def grid_kernels(chunks: int) -> dict:
-    """The launches of an SDF grid of ``chunks`` 64³ chunks: K4 (lookup +
-    PE) and K3 (MLP) once a chunk each."""
-    return {"K3": chunks, "K4": chunks}
+def grid_kernels(chunks: int, meshes: int = 1) -> dict:
+    """The launches of ``meshes`` meshes of SDF grids of ``chunks`` 64³
+    chunks in all: K4 (lookup + PE) and K3 (MLP) once a chunk each, K5 (the
+    isosurface) once a mesh; none without chunks."""
+    return {"K3": chunks, "K4": chunks, "K5": meshes if chunks else 0}
 
 
 def zero_counts() -> None:
@@ -1006,6 +1063,7 @@ def finetune_path(gens_main, dev):
     k3_launches = launch_counts()["K3"]
     k4_launches = launch_counts()["K4"]
     k1_launches = launch_counts()["K1"]
+    k5_launches = launch_counts()["K5"]
     k1.BilerpAggSplat.on_forward = None
     GenSModel.init_volumes = init_volumes
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1023,6 +1081,7 @@ def finetune_path(gens_main, dev):
     assert k3_launches == k4_launches == (512 // 64) ** 3, (k3_launches,
                                                             k4_launches)
     assert k1_launches == 0, k1_launches
+    assert k5_launches == 1, k5_launches  # the validation's mesh
     assert captured, "no scale-0 K2 input was captured"
     steps = [st for st in runner.finetune_stats if "loss" in st]
     (val,) = [st for st in runner.finetune_stats if "val_step" in st]
@@ -1660,7 +1719,7 @@ def quality_ft_path(heldout: dict) -> None:
     wall = time.perf_counter() - t0
     counts = launch_counts()
     k3 = 2 * (192 // 64) ** 3
-    assert counts == {**{k: 0 for k in counts}, **grid_kernels(k3)}, counts
+    assert counts == {**{k: 0 for k in counts}, **grid_kernels(k3, 2)}, counts
     assert res["ft_k3_launches"] == k3, res
     curve = res["ft_curve"]
     assert [r["step"] for r in curve] == [0, QUALITY_FT_STEPS - 1], curve

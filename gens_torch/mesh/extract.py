@@ -1,30 +1,48 @@
-"""SDF-grid evaluation on the device, chunked, then the native isosurface on
-the host (counterpart of ``eval_sdf_grid`` and ``extract_geometry`` in
+"""SDF-grid evaluation on the device, chunked, then the isosurface
+(counterpart of ``eval_sdf_grid`` and ``extract_geometry`` in
 gens_tpu/mesh/extract.py; the runner times the two halves apart).
 
 The grid is evaluated in x-slabs of ``block`` planes, each in sub-chunks of
 ``block**3`` points (the reference's 64³ chunk), so device memory stays
-O(chunk). Vertices are rescaled to ``[bound_min, bound_max]``.
+O(chunk). It comes back as a host array tagged with the device it was
+evaluated on (:class:`SdfGrid`), and :func:`grid_to_mesh` meshes where the
+grid lives: K5 (``ops/isosurface.py``) on the card for a grid tagged with a
+CUDA device or a CUDA tensor, the native host code for anything else, with
+one result. Vertices are rescaled to ``[bound_min, bound_max]``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gens_torch.mesh.isosurface import marching_tetrahedra
-from gens_torch.utils.profiling import span
+from gens_torch.ops.isosurface import marching_tetrahedra_cuda
+from gens_torch.utils.profiling import count, span
+
+
+class SdfGrid(np.ndarray):
+    """The float32 host grid of :func:`eval_sdf_grid`, tagged with the
+    ``torch.device`` it was evaluated on (``torch_device``; None when
+    viewed from a plain array). Views and copies keep the tag;
+    ``np.asarray`` and ``np.ascontiguousarray`` drop it."""
+
+    torch_device: Optional[torch.device] = None
+
+    def __array_finalize__(self, obj):
+        self.torch_device = getattr(obj, "torch_device", None)
 
 
 def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
                   bound_max, resolution: int, device, block: int = 64,
-                  x_range: Tuple[int, int] = None) -> np.ndarray:
+                  x_range: Tuple[int, int] = None) -> SdfGrid:
     """Evaluate ``-sdf`` on a dense ``resolution³`` grid (interiors
     positive, as the reference marches). ``x_range`` (start, stop) limits
     the evaluation to those x planes (multiples of ``block``). Returns a
-    float32 numpy array of shape (stop - start, res, res)."""
+    float32 host array of shape (stop - start, res, res), an
+    :class:`SdfGrid` tagged with ``device``."""
     if resolution % block and resolution >= block:
         raise ValueError(f"resolution {resolution} is not a multiple of "
                          f"block {block}")
@@ -36,7 +54,9 @@ def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
     block = min(block, resolution)
     chunk = block ** 3
     x0, x1 = x_range if x_range is not None else (0, resolution)
-    out = np.empty((x1 - x0, resolution, resolution), np.float32)
+    out = np.empty((x1 - x0, resolution, resolution),
+                   np.float32).view(SdfGrid)
+    out.torch_device = torch.device(device)
     with span("gens/mesh/grid"):
         for xs in range(x0, x1, block):
             gx, gy, gz = torch.meshgrid(axes[0][xs:xs + block], axes[1],
@@ -50,13 +70,36 @@ def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
     return out
 
 
-def grid_to_mesh(grid: np.ndarray, bound_min, bound_max
+def isosurface_of(grid) -> Tuple[np.ndarray, np.ndarray]:
+    """Marching tetrahedra at level 0 where the grid lives: the current
+    values of a grid tagged with a CUDA device (copied there) or of a CUDA
+    tensor through K5 (``k5.launches``), any other array or tensor through
+    the native host code (``isosurface.host``). Both give the same
+    (vertices (V, 3) float32 in grid-index space, triangles (T, 3) int32).
+    A grid on or tagged with another device raises."""
+    if isinstance(grid, torch.Tensor):
+        device = grid.device
+    else:
+        device = getattr(grid, "torch_device", None)
+    if device is None or device.type == "cpu":
+        count("isosurface.host")
+        return marching_tetrahedra(grid, 0.0)
+    if device.type != "cuda":
+        raise ValueError(f"no isosurface for a grid on device {device}")
+    if not isinstance(grid, torch.Tensor):
+        grid = torch.from_numpy(np.ascontiguousarray(grid, np.float32)).to(
+            device)
+    return marching_tetrahedra_cuda(grid.contiguous(), 0.0)
+
+
+def grid_to_mesh(grid, bound_min, bound_max
                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Marching tetrahedra on a full -sdf grid at level 0, vertices rescaled
-    to the bounds. Returns (vertices (V, 3) float32, triangles (T, 3))."""
+    """Marching tetrahedra on a full -sdf grid at level 0
+    (:func:`isosurface_of`), vertices rescaled to the bounds. Returns
+    (vertices (V, 3) float32, triangles (T, 3))."""
     resolution = grid.shape[0]
     with span("gens/mesh/isosurface"):
-        verts, tris = marching_tetrahedra(grid, 0.0)
+        verts, tris = isosurface_of(grid)
     bmin = np.asarray(bound_min, np.float32)
     bmax = np.asarray(bound_max, np.float32)
     if len(verts):
