@@ -193,6 +193,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 Build outputs and the runs' files go under build/ in the checkout.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -239,6 +240,23 @@ QUALITY_ACC_RTOL, QUALITY_PSNR_ATOL = 0.15, 0.5
 GATHER_N = 1 << 20
 
 
+@contextlib.contextmanager
+def spying(module, name: str, spy):
+    """Inside the block, ``module.name`` first calls ``spy`` with its
+    arguments (a module global that callers look up when they call it)."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        spy(*args, **kwargs)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -262,8 +280,7 @@ def main() -> int:
     from gens_torch.mesh import clean, isosurface
     from gens_torch.ops import fused_mlp as fm
     from gens_torch.ops import splat as k1
-    from gens_torch.ops.cuda_build import build_libraries
-    from gens_torch.utils import zstd
+    from gens_torch.utils import libraries, zstd
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -273,13 +290,11 @@ def main() -> int:
 
     # -- build --------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build_libraries(["sdf_mlp.cu", "cascade_pe.cu", "isosurface.cu",
-                             "splat.cu", "window_fwd.cu", "gather_probe.cu"])
-    isosurface.build_library()
-    clean.build_library()
-    zstd.build_library()
+    built = libraries.build(libraries.cuda_libraries())
+    libraries.build([isosurface.LIBRARY, clean.LIBRARY, zstd.LIBRARY])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc " + ", ".join(
-        f"{k} {v[1]} s" for k, v in built.items()) + ")", flush=True)
+        f"{os.path.basename(k)} {v[1]} s" for k, v in built.items()) + ")",
+        flush=True)
     for _, _, ptxas in built.values():
         print(ptxas.strip(), flush=True)
     print(f"K1 float4 atomics: {k1.vector_atomics()}", flush=True)
@@ -673,7 +688,7 @@ def train_path(gens_main, dev):
     # memory stays the run's own)
     captured = []
 
-    def capture(xy, ct, hw, mm_dtype, dim):
+    def capture(xy, ct, hw, mm_dtype, layout, dim):
         if len(captured) < 25:
             captured.append({"xy": xy.cpu(), "ct": ct.cpu(), "hw": hw,
                              "mm_dtype": mm_dtype, "dim": dim})
@@ -686,17 +701,16 @@ def train_path(gens_main, dev):
             "train_dataset.num_src_view=4", "train_dataset.img_hw=[480,640]",
             "train_dataset.n_rays=512", "train.epochs=1"]
 
-    k1.BilerpAggSplat.on_backward = capture
     torch.cuda.reset_peak_memory_stats()
     k1.brick_counts()
     zero_counts()
     t0 = time.perf_counter()
-    runner = gens_main(argv)
+    with spying(k1, "splat_bilinear", capture):
+        runner = gens_main(argv)
     wall = time.perf_counter() - t0
     launches = launch_counts()["K1"]
     bricks = k1.brick_counts()
     assert launch_counts()["K2"] == 0
-    k1.BilerpAggSplat.on_backward = None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     cfg = runner.cfg
@@ -1024,9 +1038,8 @@ def finetune_path(gens_main, dev):
 
     captured, build = {}, {}
 
-    def capture(image, xy, mm_dtype, impl):
-        if impl == "kernel2f" and tuple(image.shape[:2]) == (1152, 1600) \
-                and not captured:
+    def capture(image, xy, mm_dtype):
+        if tuple(image.shape[:2]) == (1152, 1600) and not captured:
             captured.update(image=image.detach().clone(), xy=xy.clone(),
                             mm_dtype=mm_dtype)
 
@@ -1052,19 +1065,18 @@ def finetune_path(gens_main, dev):
             "mesh_resolution=512", "train.epochs=6",
             "model.volume.packed_bilerp=pallas",
             "model.volume.splat_impl=kernel2f"]
-    k1.BilerpAggSplat.on_forward = capture
     GenSModel.init_volumes = counted_init_volumes
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    runner = gens_main(argv)
+    with spying(k1, "bilerp_window_fwd", capture):
+        runner = gens_main(argv)
     wall = time.perf_counter() - t0
     launches = launch_counts()["K2"]
     k3_launches = launch_counts()["K3"]
     k4_launches = launch_counts()["K4"]
     k1_launches = launch_counts()["K1"]
     k5_launches = launch_counts()["K5"]
-    k1.BilerpAggSplat.on_forward = None
     GenSModel.init_volumes = init_volumes
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1544,19 +1556,16 @@ def quality_train_path() -> None:
     # the 25 splats of the first step, copied to the host
     captured = []
 
-    def capture(xy, ct, hw, mm_dtype, dim):
+    def capture(xy, ct, hw, mm_dtype, layout, dim):
         if len(captured) < k1_step:
             captured.append((xy.cpu(), ct.cpu(), hw, mm_dtype, dim))
 
-    k1.BilerpAggSplat.on_backward = capture
     zero_counts()
     t0 = time.perf_counter()
-    try:
+    with spying(k1, "splat_bilinear", capture):
         res = quality_train.main(flags + [
             "--out", out, "--runs-dir", QUALITY_TRAIN_DIR,
             "--ckpt-out", ckpt])
-    finally:
-        k1.BilerpAggSplat.on_backward = None
     wall = time.perf_counter() - t0
     counts = launch_counts()
     assert counts == {**{k: 0 for k in counts},

@@ -10,8 +10,8 @@ time, utils/clean_mesh.py:9-130).
 * :func:`clean_mesh`: both, as the runner applies them.
 
 Ray casting uses the repository's native BVH (``native/raycast.cpp``),
-compiled from source with ``g++ -O3 -fopenmp`` at first use into
-``build/gens_torch/``; a failed build raises. The dilation rebuilds
+compiled from source with ``g++ -O3 -fopenmp`` at first use
+(``utils/libraries.py``). The dilation rebuilds
 OpenCV's ``MORPH_ELLIPSE`` footprint exactly (it is not a Euclidean disk)
 and dilates with ``scipy.ndimage``, so cv2 is not needed.
 """
@@ -24,34 +24,18 @@ from typing import Optional
 
 import numpy as np
 
-from gens_torch.mesh.isosurface import build_native
+from gens_torch.utils import libraries
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def build_library() -> str:
-    """Compile native/raycast.cpp unless built; returns the path."""
-    return build_native("native/raycast.cpp", ["-fopenmp"])
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        lib.bvh_build.restype = ctypes.c_void_p
-        lib.bvh_build.argtypes = [ctypes.POINTER(ctypes.c_float),
-                                  ctypes.c_int64,
-                                  ctypes.POINTER(ctypes.c_int32),
-                                  ctypes.c_int64]
-        lib.bvh_free.restype = None
-        lib.bvh_free.argtypes = [ctypes.c_void_p]
-        lib.bvh_first_hit.restype = None
-        lib.bvh_first_hit.argtypes = [
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)]
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("native/raycast.cpp", {
+    "bvh_build": (ctypes.c_void_p, [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]),
+    "bvh_free": (None, [ctypes.c_void_p]),
+    "bvh_first_hit": (None, [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)])},
+    flags=("-fopenmp",))
 
 
 def _fptr(a: np.ndarray):
@@ -62,7 +46,7 @@ class Raycaster:
     """First-hit ray casting against a triangle mesh (native BVH)."""
 
     def __init__(self, verts: np.ndarray, tris: np.ndarray):
-        self.lib = _load()
+        self.lib = libraries.load(LIBRARY)
         verts = np.ascontiguousarray(verts, np.float32)
         tris = np.ascontiguousarray(tris, np.int32)
         # the BVH copies what it needs of the arrays

@@ -1,75 +1,29 @@
 """Isosurface extraction through the repository's native C++ marching
 tetrahedra (``native/isosurface.cpp``), bound with ctypes as
-gens_tpu/mesh/isosurface.py binds it.
-
-The library is compiled from source with ``g++`` at first use into
-``build/gens_torch/`` (the prebuilt ``native/libisosurface.so`` was built for
-another host's CPU); a failed build raises. :func:`build_native` builds the
-repository's other native sources the same way: ``native/raycast.cpp`` and
-the port's own ``gens_torch/native/zstd_decode.cpp``.
+gens_tpu/mesh/isosurface.py binds it. The library builds from source with
+``g++`` at first use (``utils/libraries.py``; the prebuilt
+``native/libisosurface.so`` was built for another host's CPU).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from typing import Optional, Sequence, Tuple
+from typing import Tuple
 
 import numpy as np
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gens_torch")
+from gens_torch.utils import libraries
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def build_native(source: str, flags: Sequence[str] = ()) -> str:
-    """Compile ``source`` (a path from the repository's root, such as
-    ``native/raycast.cpp``) with ``g++ -O3 <flags> -shared -fPIC`` into
-    ``build/gens_torch/`` (named by the source's hash) unless built;
-    returns the library's path. A failed build raises."""
-    src = os.path.join(_REPO_ROOT, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    stem = os.path.splitext(os.path.basename(source))[0]
-    path = os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
-    if not os.path.exists(path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        res = subprocess.run(["g++", "-O3", *flags, "-shared", "-fPIC", "-o",
-                              tmp, src], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {src}:\n{res.stderr}")
-        os.replace(tmp, path)
-    return path
-
-
-def build_library() -> str:
-    """Compile native/isosurface.cpp unless built; returns the path."""
-    return build_native("native/isosurface.cpp")
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        lib.extract_isosurface.restype = ctypes.c_int
-        lib.extract_isosurface.argtypes = [
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_float,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-        lib.iso_free.restype = None
-        lib.iso_free.argtypes = [ctypes.c_void_p]
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("native/isosurface.cpp", {
+    "extract_isosurface": (ctypes.c_int, [
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_float,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.POINTER(ctypes.c_int64)]),
+    "iso_free": (None, [ctypes.c_void_p])})
 
 
 def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0
@@ -79,7 +33,7 @@ def marching_tetrahedra(grid: np.ndarray, iso: float = 0.0
     Returns (vertices (V, 3) float32 in grid-index space, triangles (T, 3)
     int32), wound with normals toward the below-iso region."""
     grid = np.ascontiguousarray(grid, dtype=np.float32)
-    lib = _load()
+    lib = libraries.load(LIBRARY)
     vp = ctypes.POINTER(ctypes.c_float)()
     tp = ctypes.POINTER(ctypes.c_int32)()
     nv = ctypes.c_int64()

@@ -23,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from gens_torch.config import RenderConfig
-from gens_torch.ops import isosurface as k5
 from gens_torch.ops.fused_mlp import sdf_fused_fn
 from gens_torch.ops.interp import (combine_mask_cascade, lookup_mask,
                                    round_bf16, safe_norm)
@@ -143,11 +142,7 @@ class Renderer:
     def sdf_fn_for_extraction(self, volumes):
         """Gradient-free SDF for dense grid evaluation through K4 (lookup +
         PE) and K3 (MLP): the CUDA kernels for volumes on the card, their
-        plain versions on the CPU. For volumes on the card it also builds
-        and loads K5, which meshes every grid extracted on the card, so
-        that no mesh pays for its build."""
-        if volumes[0].device.type == "cuda":
-            k5.load()
+        plain versions on the CPU."""
         return sdf_fused_fn(self.sdf, volumes)
 
     # -- core --------------------------------------------------------------

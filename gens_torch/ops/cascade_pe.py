@@ -10,23 +10,21 @@ inputs, ``x_pe`` and ``feats_pe``, in the layouts K3 takes.
 :func:`cascade_pe` launches the kernel for CUDA tensors and takes
 :func:`cascade_pe_plain` only when every tensor is on the CPU; on any other
 device, and on inputs the kernel does not take (dtype, contiguity, mixed
-devices, more than ``MAX_SCALES`` scales), it raises. The kernel is compiled
-at first use with ``nvcc`` from ``csrc/cascade_pe.cu`` into
-``build/gens_torch/`` and loaded with ctypes. The counter ``k4.launches``
-(``utils/profiling.py``) counts kernel launches.
+devices, more than ``MAX_SCALES`` scales), it raises. The counter
+``k4.launches`` (``utils/profiling.py``) counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from gens_torch.models.embedder import (positional_encoding,
                                         positional_encoding_dim)
-from gens_torch.ops.cuda_build import build_library
 from gens_torch.ops.interp import lookup_volume_cascade
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count
 
 MAX_SCALES = 8
@@ -72,29 +70,17 @@ def check_inputs(pts: torch.Tensor, volumes: Sequence[torch.Tensor],
                          f"CUDA device, or all on the CPU")
 
 
-# -- build and bind -----------------------------------------------------------
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("cascade_pe.cu")[0])
-        lib.cascade_pe_forward.restype = ctypes.c_int
-        lib.cascade_pe_forward.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/csrc/cascade_pe.cu", {
+    "cascade_pe_forward": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])})
 
 
 def _launch(pts: torch.Tensor, volumes: Sequence[torch.Tensor], scale: float,
             multires: int, feat_multires: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    lib = _load()
     n, s = pts.shape[0], len(volumes)
     c_total = sum(v.shape[3] for v in volumes)
     x_pe = torch.empty((n, positional_encoding_dim(multires, 3)),
@@ -102,15 +88,13 @@ def _launch(pts: torch.Tensor, volumes: Sequence[torch.Tensor], scale: float,
     feats_pe = torch.empty((n, positional_encoding_dim(feat_multires,
                                                        c_total)),
                            dtype=torch.float32, device=pts.device)
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
-    rc = lib.cascade_pe_forward(
+    libraries.check_launch("K4", libraries.load(LIBRARY).cascade_pe_forward(
         pts.data_ptr(), n, s, (ctypes.c_void_p * s)(
             *[v.data_ptr() for v in volumes]),
         (ctypes.c_int * (4 * s))(*[d for v in volumes for d in v.shape]),
         int(volumes[0].dtype == torch.bfloat16), scale, max(multires, 0),
-        max(feat_multires, 0), x_pe.data_ptr(), feats_pe.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
+        max(feat_multires, 0), x_pe.data_ptr(), feats_pe.data_ptr(),
+        libraries.stream(pts.device)))
     count("k4.launches")
     return x_pe, feats_pe
 

@@ -7,10 +7,8 @@ Counterpart of gens_tpu/ops/pallas_mlp.py (``sdf_mlp_fused``,
 
 :func:`sdf_mlp_fused` launches the kernel for CUDA tensors and takes
 :func:`sdf_mlp_plain` only for tensors on the CPU; any other device raises.
-The kernel is compiled at first use with ``nvcc`` from ``csrc/sdf_mlp.cu``
-into ``build/gens_torch/`` (named by the hash of the source and its
-headers) and loaded with ctypes. The counter ``k3.launches``
-(``utils/profiling.py``) counts kernel launches.
+The counter ``k3.launches`` (``utils/profiling.py``) counts kernel
+launches.
 
 The kernel multiplies in 3xTF32: each operand v is split into
 ``hi = tf32_rna(v)`` and ``lo = tf32_rna(v - hi)`` and the product taken as
@@ -29,7 +27,7 @@ import torch
 
 from gens_torch.config import SDFNetConfig
 from gens_torch.ops.cascade_pe import cascade_pe
-from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count, span
 
 _INV_SQRT2 = 0.70710678118654752
@@ -144,29 +142,16 @@ def sdf_mlp_plain(fm: FoldedMLP, x_pe: torch.Tensor,
     return h
 
 
-# -- build and bind -----------------------------------------------------------
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("sdf_mlp.cu")[0])
-        lib.sdf_mlp_forward.restype = ctypes.c_int
-        lib.sdf_mlp_forward.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_longlong] + [ctypes.c_int] * 5
-            + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p])
-        lib.sdf_mlp_max_width.restype = ctypes.c_int
-        lib.sdf_mlp_max_width.argtypes = []
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/csrc/sdf_mlp.cu", {
+    "sdf_mlp_forward": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]),
+    "sdf_mlp_max_width": (ctypes.c_int, [])})
 
 
 def _launch(fm: FoldedMLP, x_pe: torch.Tensor, feats_pe: torch.Tensor
             ) -> torch.Tensor:
-    lib = _load()
+    lib = libraries.load(LIBRARY)
     n = x_pe.shape[0]
     for t, width in ((x_pe, fm.d_x), (feats_pe, fm.d_feat)):
         if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != n
@@ -183,15 +168,12 @@ def _launch(fm: FoldedMLP, x_pe: torch.Tensor, feats_pe: torch.Tensor
     ints = ctypes.c_int * L
     out = torch.empty((n, widths[-1]), dtype=torch.float32,
                       device=x_pe.device)
-    stream = torch.cuda.current_stream(x_pe.device).cuda_stream
-    rc = lib.sdf_mlp_forward(
+    libraries.check_launch("K3", lib.sdf_mlp_forward(
         x_pe.data_ptr(), feats_pe.data_ptr(), fm.tc.data_ptr(),
         fm.bias.data_ptr(), out.data_ptr(), n, L, fm.d_x, fm.d_feat,
         fm.d_hidden, fm.tc.shape[1],
         ints(*[w.shape[0] for w, _ in fm.weights]), ints(*widths),
-        ints(*fm.skip), stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+        ints(*fm.skip), libraries.stream(x_pe.device)))
     count("k3.launches")
     return out
 
@@ -202,11 +184,9 @@ def sdf_mlp_fused(fm: FoldedMLP, x_pe: torch.Tensor,
     (N, PE(feats)). Returns the (N, d_out) raw head (the caller divides the
     SDF channel by cfg.scale). CUDA tensors launch the kernel; CPU tensors
     take :func:`sdf_mlp_plain`."""
-    if x_pe.device.type == "cuda":
+    if libraries.cuda_path("K3", x_pe.device):
         return _launch(fm, x_pe, feats_pe)
-    if x_pe.device.type == "cpu":
-        return sdf_mlp_plain(fm, x_pe, feats_pe)
-    raise ValueError(f"K3 has no path for device {x_pe.device}")
+    return sdf_mlp_plain(fm, x_pe, feats_pe)
 
 
 def sdf_fused_fn(sdf_net, volumes, fm: Optional[FoldedMLP] = None):

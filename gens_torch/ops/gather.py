@@ -20,21 +20,18 @@ them (as XLA's gather does) and the one-hot product gives a zero row for
 them, in the kernels and in the plain versions alike.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version only for tensors on the CPU; any other device raises. The kernels
-are compiled at first use with ``nvcc`` from ``csrc/gather_probe.cu`` into
-``build/gens_torch/`` and loaded with ctypes. The counters ``p1.launches``,
-``p2.launches`` and ``p3.launches`` (``utils/profiling.py``) count kernel
-launches.
+version only for tensors on the CPU; any other device raises. The counters
+``p1.launches``, ``p2.launches`` and ``p3.launches`` (``utils/profiling.py``)
+count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
-from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -79,27 +76,12 @@ def onehot_gather_plain(table: torch.Tensor, idx: torch.Tensor
     return out
 
 
-# -- build and bind -----------------------------------------------------------
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("gather_probe.cu")[0])
-        lib.row_gather.restype = ctypes.c_int
-        lib.row_gather.argtypes = (
-            [ctypes.c_void_p] * 3
-            + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.onehot_gather.restype = ctypes.c_int
-        lib.onehot_gather.argtypes = (
-            [ctypes.c_void_p] * 4
-            + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.onehot_scratch_bytes.restype = ctypes.c_longlong
-        lib.onehot_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/csrc/gather_probe.cu", {
+    "row_gather": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "onehot_gather": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "onehot_scratch_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2)})
 
 
 def copy_plan(row_bytes: int, *ptrs: int):
@@ -120,21 +102,16 @@ def copy_plan(row_bytes: int, *ptrs: int):
 def _row_gather(table: torch.Tensor, idx: torch.Tensor, name: str,
                 counter: str) -> torch.Tensor:
     _check(table, idx, name)
-    if idx.device.type == "cpu":
+    if not libraries.cuda_path(name, idx.device):
         return row_gather_plain(table, idx)
-    if idx.device.type != "cuda":
-        raise ValueError(f"{name} has no path for device {idx.device}")
     rows, width = table.shape
     out = torch.empty((idx.shape[0], width), dtype=table.dtype,
                       device=idx.device)
     row_bytes = width * table.element_size()
     grain, group = copy_plan(row_bytes, table.data_ptr(), out.data_ptr())
-    rc = _load().row_gather(
+    libraries.check_launch(name, libraries.load(LIBRARY).row_gather(
         idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0], rows,
-        row_bytes, grain, group,
-        torch.cuda.current_stream(idx.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        row_bytes, grain, group, libraries.stream(idx.device)))
     count(counter)
     return out
 
@@ -159,22 +136,18 @@ def onehot_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the table into scratch, then the product; one launch is counted); CPU
     tensors take :func:`onehot_gather_plain`."""
     _check(table, idx, "onehot_gather")
-    if idx.device.type == "cpu":
+    if not libraries.cuda_path("onehot_gather", idx.device):
         return onehot_gather_plain(table, idx)
-    if idx.device.type != "cuda":
-        raise ValueError(f"onehot_gather has no path for device {idx.device}")
     rows, width = table.shape
-    lib = _load()
+    lib = libraries.load(LIBRARY)
     out = torch.empty((idx.shape[0], width), dtype=table.dtype,
                       device=idx.device)
     # the pre-pass's bf16 table, transposed and padded (part of the call)
     scratch = torch.empty((lib.onehot_scratch_bytes(rows, width),),
                           dtype=torch.uint8, device=idx.device)
-    rc = lib.onehot_gather(
+    libraries.check_launch("onehot_gather", lib.onehot_gather(
         idx.data_ptr(), table.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         idx.shape[0], rows, width, int(table.dtype == torch.bfloat16),
-        torch.cuda.current_stream(idx.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"onehot_gather launch failed: CUDA error {rc}")
+        libraries.stream(idx.device)))
     count("p3.launches")
     return out

@@ -8,43 +8,26 @@ the (V, 3) float32 vertices in grid-index space and the (T, 3) int32
 triangles, in the same order and with the same winding, as host arrays. It
 launches a count pass and a scan, reads back the two totals, sizes the
 outputs, launches the emit pass and copies the outputs to the host once.
-Any other tensor raises. The kernel is compiled at first use with ``nvcc``
-from ``csrc/isosurface.cu`` into ``build/gens_torch/`` and loaded with
-ctypes (:func:`load`); the counter ``k5.launches`` (``utils/profiling.py``)
-counts the isosurfaces it extracts.
+Any other tensor raises. The counter ``k5.launches``
+(``utils/profiling.py``) counts the isosurfaces it extracts.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count
 
-_lib: Optional[ctypes.CDLL] = None
-
-
-def load() -> ctypes.CDLL:
-    """Build (unless built) and load K5's library."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("isosurface.cu")[0])
-        lib.isosurface_count.restype = ctypes.c_int
-        lib.isosurface_count.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 3)
-        lib.isosurface_emit.restype = ctypes.c_int
-        lib.isosurface_emit.argtypes = (
-            [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 5)
-        lib.isosurface_tile.restype = ctypes.c_int
-        lib.isosurface_tile.argtypes = []
-        _lib = lib
-    return _lib
+_GRID = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float]
+LIBRARY = libraries.Library("gens_torch/csrc/isosurface.cu", {
+    "isosurface_count": (ctypes.c_int, _GRID + [ctypes.c_void_p] * 3),
+    "isosurface_emit": (ctypes.c_int, _GRID + [ctypes.c_void_p] * 5),
+    "isosurface_tile": (ctypes.c_int, [])})
 
 
 def check_grid(grid: torch.Tensor) -> None:
@@ -68,7 +51,7 @@ def extract_on_device(grid: torch.Tensor, iso: float = 0.0
     """The (V, 3) f32 vertices and (T, 3) int32 triangles of ``grid``'s
     ``iso`` level, left on its device (one host read of the totals)."""
     check_grid(grid)
-    lib = load()
+    lib = libraries.load(LIBRARY)
     nx, ny, nz = grid.shape
     cubes = max(nx - 1, 0) * max(ny - 1, 0) * max(nz - 1, 0)
     tile = lib.isosurface_tile()
@@ -76,11 +59,10 @@ def extract_on_device(grid: torch.Tensor, iso: float = 0.0
     dev = grid.device
     prefix = torch.empty(cubes, dtype=torch.int16, device=dev)
     offs = torch.empty((n_tiles + 1, 2), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.isosurface_count(grid.data_ptr(), nx, ny, nz, iso,
-                              prefix.data_ptr(), offs.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K5 count failed: CUDA error {rc}")
+    stream = libraries.stream(dev)
+    libraries.check_launch("K5 count", lib.isosurface_count(
+        grid.data_ptr(), nx, ny, nz, iso, prefix.data_ptr(), offs.data_ptr(),
+        stream))
     n_verts, n_tris = (int(n) for n in offs[n_tiles].cpu())
     if n_verts >= 1 << 31 or n_tris >= 1 << 31:
         raise ValueError(f"K5 indexes vertices and triangles in int32, got "
@@ -88,11 +70,9 @@ def extract_on_device(grid: torch.Tensor, iso: float = 0.0
     verts = torch.empty((n_verts, 3), dtype=torch.float32, device=dev)
     tris = torch.empty((n_tris, 3), dtype=torch.int32, device=dev)
     if n_tris:
-        rc = lib.isosurface_emit(grid.data_ptr(), nx, ny, nz, iso,
-                                 prefix.data_ptr(), offs.data_ptr(),
-                                 verts.data_ptr(), tris.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"K5 emit failed: CUDA error {rc}")
+        libraries.check_launch("K5 emit", lib.isosurface_emit(
+            grid.data_ptr(), nx, ny, nz, iso, prefix.data_ptr(),
+            offs.data_ptr(), verts.data_ptr(), tris.data_ptr(), stream))
     count("k5.launches")
     return verts, tris
 

@@ -34,13 +34,13 @@ the bf16 gather forward and the exact f32 adjoint, whatever
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from gens_torch.ops.cuda_build import build_library
 from gens_torch.ops.interp import bilerp
 from gens_torch.ops.window_fwd import bilerp_window_fwd
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count, span
 
 MM_DTYPES = ("float32", "bfloat16")
@@ -109,30 +109,16 @@ def splat_plain(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
     return out.reshape(H, W, C)
 
 
-# -- build and bind -----------------------------------------------------------
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("splat.cu")[0])
-        lib.splat_bilinear_forward.restype = ctypes.c_int
-        lib.splat_bilinear_forward.argtypes = (
-            [ctypes.c_void_p] * 3
-            + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.splat_vector_atomics.restype = ctypes.c_int
-        lib.splat_vector_atomics.argtypes = []
-        lib.splat_brick_counts.restype = ctypes.c_int
-        lib.splat_brick_counts.argtypes = [ctypes.c_void_p]
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/csrc/splat.cu", {
+    "splat_bilinear_forward": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    "splat_vector_atomics": (ctypes.c_int, []),
+    "splat_brick_counts": (ctypes.c_int, [ctypes.c_void_p])})
 
 
 def vector_atomics() -> bool:
     """Whether the built kernel adds a float4 per corner (CUDA 12.1+)."""
-    return bool(_load().splat_vector_atomics())
+    return bool(libraries.load(LIBRARY).splat_vector_atomics())
 
 
 def brick_counts() -> Tuple[int, int]:
@@ -141,9 +127,8 @@ def brick_counts() -> Tuple[int, int]:
     since the last call, which zeroes both. Synchronises the device: for
     measurement only."""
     counts = (ctypes.c_ulonglong * 2)()
-    rc = _load().splat_brick_counts(ctypes.addressof(counts))
-    if rc != 0:
-        raise RuntimeError(f"K1 brick counts: CUDA error {rc}")
+    libraries.check_launch("K1 brick counts", libraries.load(
+        LIBRARY).splat_brick_counts(ctypes.addressof(counts)))
     return int(counts[0]), int(counts[1])
 
 
@@ -170,14 +155,11 @@ def _launch(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
                          "be 8- and 16-byte aligned")
     H, W = int(hw[0]), int(hw[1])
     out = torch.zeros((H, W, C), dtype=torch.float32, device=xy.device)
-    lib = _load()
-    stream = torch.cuda.current_stream(xy.device).cuda_stream
-    rc = lib.splat_bilinear_forward(
+    lib = libraries.load(LIBRARY)
+    libraries.check_launch("K1", lib.splat_bilinear_forward(
         xy.data_ptr(), ct.data_ptr(), out.data_ptr(), n, H, W, C,
         int(mm_dtype == "bfloat16"), int(layout == "per_channel"), dim,
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+        libraries.stream(xy.device)))
     count("k1.launches")
     return out
 
@@ -192,11 +174,9 @@ def splat_bilinear(xy: torch.Tensor, ct: torch.Tensor, hw: Tuple[int, int],
     image. CUDA tensors launch K1; CPU tensors take :func:`splat_plain`."""
     _check_mm_dtype(mm_dtype, layout)
     _check_dim(ct.shape[0], dim)
-    if xy.device.type == "cuda":
+    if libraries.cuda_path("K1", xy.device):
         return _launch(xy, ct, hw, mm_dtype, layout, dim)
-    if xy.device.type == "cpu":
-        return splat_plain(xy, ct, hw, mm_dtype, layout)
-    raise ValueError(f"K1 has no path for device {xy.device}")
+    return splat_plain(xy, ct, hw, mm_dtype, layout)
 
 
 class BilerpAggSplat(torch.autograd.Function):
@@ -209,15 +189,7 @@ class BilerpAggSplat(torch.autograd.Function):
     per_channel rounding under "kernel", the exact f32 adjoint under
     "adjoint", and the fused_u rounding otherwise; ``dim`` > 0 says that
     ``xy`` is a dim³ voxel grid (see :func:`splat_bilinear`). ``xy`` gets
-    no gradient; only it is saved.
-
-    ``on_forward`` / ``on_backward``, when set, are called as
-    ``fn(image, xy, mm_dtype, impl)`` with the forward's inputs and
-    ``fn(xy, ct, hw, mm_dtype, dim)`` with the splat's inputs (measurement
-    hooks)."""
-
-    on_forward: Optional[Callable] = None
-    on_backward: Optional[Callable] = None
+    no gradient; only it is saved."""
 
     @staticmethod
     def forward(ctx, image, xy, mm_dtype, impl="kernel2", dim=0):
@@ -226,8 +198,6 @@ class BilerpAggSplat(torch.autograd.Function):
         ctx.hw = (image.shape[0], image.shape[1])
         ctx.mm_dtype = "float32" if impl == "adjoint" else mm_dtype
         ctx.layout = "per_channel" if impl == "kernel" else "fused_u"
-        if BilerpAggSplat.on_forward is not None:
-            BilerpAggSplat.on_forward(image, xy, mm_dtype, impl)
         if impl == "kernel2f":
             return bilerp_window_fwd(image, xy.contiguous(), mm_dtype)
         return bilerp(_bf16(image), xy)
@@ -236,8 +206,6 @@ class BilerpAggSplat(torch.autograd.Function):
     def backward(ctx, ct):
         (xy,) = ctx.saved_tensors
         xy, ct = xy.contiguous(), ct.float().contiguous()
-        if BilerpAggSplat.on_backward is not None:
-            BilerpAggSplat.on_backward(xy, ct, ctx.hw, ctx.mm_dtype, ctx.dim)
         with span("gens/backward/splat"):
             dimg = splat_bilinear(xy, ct, ctx.hw, ctx.mm_dtype, ctx.layout,
                                   ctx.dim)

@@ -26,11 +26,10 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
-from gens_torch.ops.cuda_build import build_library
+from gens_torch.utils import libraries
 from gens_torch.utils.profiling import count
 
 MM_DTYPES = ("float32", "bfloat16")
@@ -80,22 +79,9 @@ def window_fwd_plain(image: torch.Tensor, xy: torch.Tensor,
     return torch.where(live[:, None], vals, torch.zeros_like(vals))
 
 
-# -- build and bind -----------------------------------------------------------
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library("window_fwd.cu")[0])
-        lib.bilerp_window_forward.restype = ctypes.c_int
-        lib.bilerp_window_forward.argtypes = (
-            [ctypes.c_void_p] * 3
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p])
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/csrc/window_fwd.cu", {
+    "bilerp_window_forward": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])})
 
 
 def _launch(image: torch.Tensor, xy: torch.Tensor,
@@ -118,13 +104,10 @@ def _launch(image: torch.Tensor, xy: torch.Tensor,
         raise ValueError("K2 reads xy as float2 and a 4-channel pixel as one "
                          "8-byte (bf16) or 16-byte (f32) load: they must be "
                          "aligned")
-    lib = _load()
-    stream = torch.cuda.current_stream(xy.device).cuda_stream
-    rc = lib.bilerp_window_forward(
+    lib = libraries.load(LIBRARY)
+    libraries.check_launch("K2", lib.bilerp_window_forward(
         xy.data_ptr(), img.data_ptr(), out.data_ptr(), n, H, W, C,
-        int(mm_dtype == "bfloat16"), stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
+        int(mm_dtype == "bfloat16"), libraries.stream(xy.device)))
     count("k2.launches")
     return out
 
@@ -135,8 +118,6 @@ def bilerp_window_fwd(image: torch.Tensor, xy: torch.Tensor,
     with the operand rounding of ``mm_dtype``; (N, C) f32. CUDA tensors
     launch K2; CPU tensors take :func:`window_fwd_plain`."""
     _check_mm_dtype(mm_dtype)
-    if xy.device.type == "cuda":
+    if libraries.cuda_path("K2", xy.device):
         return _launch(image, xy, mm_dtype)
-    if xy.device.type == "cpu":
-        return window_fwd_plain(image, xy, mm_dtype)
-    raise ValueError(f"K2 has no path for device {xy.device}")
+    return window_fwd_plain(image, xy, mm_dtype)

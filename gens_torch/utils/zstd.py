@@ -4,8 +4,7 @@ ctypes. It reads the zstd frames of an orbax checkpoint (OCDBT nodes and
 zarr chunks) where neither ``zstandard`` nor tensorstore is installed, and
 it is the only decoder the port uses: nothing falls back to another one.
 
-The library is compiled with ``g++`` at first use into ``build/gens_torch/``
-(:func:`gens_torch.mesh.isosurface.build_native`); a failed build raises.
+The library is compiled with ``g++`` at first use (``utils/libraries.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from gens_torch.mesh.isosurface import build_native
+from gens_torch.utils import libraries
 
 # the counters of zstd_decode.cpp's ``Stat``, in its order
 STAT_NAMES = ("frames", "skippable_frames", "raw_blocks", "rle_blocks",
@@ -25,42 +24,27 @@ STAT_NAMES = ("frames", "skippable_frames", "raw_blocks", "rle_blocks",
               "seq_fse", "seq_repeat", "repeat_offsets", "checksums",
               "no_sequences")
 
-_lib: Optional[ctypes.CDLL] = None
-
 
 class ZstdError(ValueError):
     """A corrupt or unsupported zstd frame (a dictionary ID among them)."""
 
 
-def build_library() -> str:
-    """Compile gens_torch/native/zstd_decode.cpp unless built; returns the
-    path."""
-    return build_native("gens_torch/native/zstd_decode.cpp")
+def _check_stats(lib: ctypes.CDLL) -> None:
+    if lib.zstd_num_stats() != len(STAT_NAMES):
+        raise RuntimeError("zstd_decode.cpp counts other features than "
+                           "STAT_NAMES names")
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        lib.zstd_decompress.restype = ctypes.c_void_p
-        lib.zstd_decompress.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.c_size_t),
-            ctypes.POINTER(ctypes.c_uint64),
-            ctypes.c_char_p, ctypes.c_size_t]
-        lib.zstd_free.restype = None
-        lib.zstd_free.argtypes = [ctypes.c_void_p]
-        lib.zstd_num_stats.restype = ctypes.c_int
-        lib.zstd_num_stats.argtypes = []
-        if lib.zstd_num_stats() != len(STAT_NAMES):
-            raise RuntimeError("zstd_decode.cpp counts other features than "
-                               "STAT_NAMES names")
-        _lib = lib
-    return _lib
+LIBRARY = libraries.Library("gens_torch/native/zstd_decode.cpp", {
+    "zstd_decompress": (ctypes.c_void_p, [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_char_p, ctypes.c_size_t]),
+    "zstd_free": (None, [ctypes.c_void_p]),
+    "zstd_num_stats": (ctypes.c_int, [])}, check=_check_stats)
 
 
 def _decompress(data: bytes, stats: Optional[np.ndarray]) -> bytes:
-    lib = _load()
+    lib = libraries.load(LIBRARY)
     data = bytes(data)
     n = ctypes.c_size_t()
     err = ctypes.create_string_buffer(256)

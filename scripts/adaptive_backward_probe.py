@@ -29,8 +29,8 @@ import gens_torch.models.volume as vol_mod  # noqa: E402
 import gens_torch.ops.interp as interp  # noqa: E402
 import gens_torch.ops.projection as proj_mod  # noqa: E402
 from gens_torch.main import main as gens_main  # noqa: E402
-from gens_torch.ops.cuda_build import build_libraries  # noqa: E402
 from gens_torch.runner import get_dataset  # noqa: E402
+from gens_torch.utils import libraries  # noqa: E402
 
 
 def bilerp_advanced_indexing(image, xy):
@@ -66,7 +66,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    build_libraries(["sdf_mlp.cu", "splat.cu"])
+    libraries.build(libraries.cuda_libraries())
     tree = cs.write_dtu_tree(os.path.join(REPO, "build", "chip_smoke_dtu"))
     data = [f"{ds}.{k}" for ds in ("train_dataset", "val_dataset")
             for k in (f"data_dir={tree}", f'scene=["{cs.DTU_SCAN}"]')]

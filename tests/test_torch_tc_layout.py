@@ -1,5 +1,5 @@
-"""The host side of K3's tensor-core design (gens_torch/ops/fused_mlp.py)
-and of the kernels' build (gens_torch/ops/cuda_build.py), on the CPU.
+"""The host side of K3's tensor-core design (gens_torch/ops/fused_mlp.py),
+on the CPU (the kernels' build is tested in tests/test_torch_libraries.py).
 
 K3 multiplies in 3xTF32: hi = tf32_rna(v), lo = tf32_rna(v - hi), the
 product hi·hi + hi·lo + lo·hi. These tests hold the TF32 rounding to
@@ -18,7 +18,6 @@ import torch
 from gens_torch import convert
 from gens_torch.config import SDFNetConfig
 from gens_torch.models.sdf_net import SDFNetwork
-from gens_torch.ops import cuda_build
 from gens_torch.ops import fused_mlp as fm
 
 import _torch_common  # noqa: E402,F401  (one torch thread per worker)
@@ -163,28 +162,3 @@ def test_fold_leaves_wide_layers_to_no_kernel():
     net = SDFNetwork(SDFNetConfig(**dict(SMALL, d_hidden=fm.TC_N + 8)))
     f = fm.fold_sdf_mlp(net)
     assert f.tc is None and f.bias is None
-
-
-@pytest.mark.parametrize("source", ["sdf_mlp.cu", "gather_probe.cu"])
-def test_tensor_core_sources_hash_their_header(source):
-    assert cuda_build.source_files(source) == sorted([source, "hopper.cuh"])
-
-
-def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
-    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
-    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
-    (tmp_path / "b.cuh").write_text("// b\n")
-    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
-    assert cuda_build.source_files("k.cu") == ["a.cuh", "b.cuh", "k.cu"]
-    before = cuda_build.library_path("k.cu")
-    assert os.path.basename(before).startswith("libk_")
-    (tmp_path / "b.cuh").write_text("// b, edited\n")
-    after = cuda_build.library_path("k.cu")
-    assert after != before
-    (tmp_path / "b.cuh").write_text("// b\n")
-    assert cuda_build.library_path("k.cu") == before
-
-
-def test_libraries_link_dl_for_the_tensor_map_entry_point():
-    assert "-ldl" in cuda_build.LINK_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
