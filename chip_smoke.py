@@ -517,15 +517,16 @@ def k5_phase(grid, dev) -> dict:
     grid as ``eval_sdf_grid`` returned it: vertices and triangles bit-equal
     and in order. Timed on the grid already on the card (count, scan, the
     totals' read, emit; CUDA events) and as ``grid_to_mesh`` runs it on the
-    host array (the upload, K5, the mesh's copy back; host clock, the best
-    of 3); bound: one read of the grid and the mesh written at the HBM peak;
-    the host code's ms as the plain column. Returns the kernel table's
-    row."""
+    host array, which must be pinned (the upload, K5, the mesh's copy back;
+    host clock, the best of 3); bound: one read of the grid and the mesh
+    written at the HBM peak; the host code's ms as the plain column.
+    Returns the kernel table's row."""
     from gens_torch.mesh.extract import isosurface_of
     from gens_torch.mesh.isosurface import marching_tetrahedra
     from gens_torch.ops import isosurface as k5
 
     host = np.asarray(grid)
+    assert torch.from_numpy(host).is_pinned(), "the grid is not pinned"
     t0 = time.perf_counter()
     want = marching_tetrahedra(host, 0.0)
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -550,7 +551,7 @@ def k5_phase(grid, dev) -> dict:
           f"{bound:.4f} ms ({n_bytes:.4g} B at {PEAK_BYTES / 1e12:.2f} "
           f"TB/s), host code {plain_ms:.1f} ms, bit-equal True; as "
           f"grid_to_mesh runs it {min(walls):.1f} ms (upload "
-          f"{upload_ms:.1f} ms)", flush=True)
+          f"{upload_ms:.1f} ms from pinned memory)", flush=True)
     return {"name": "isosurface", "route": "cuda",
             "source": "gens_torch/csrc/isosurface.cu",
             "replaces": "none (native/isosurface.cpp on the host, as "

@@ -4,11 +4,17 @@ gens_tpu/mesh/extract.py; the runner times the two halves apart).
 
 The grid is evaluated in x-slabs of ``block`` planes, each in sub-chunks of
 ``block**3`` points (the reference's 64³ chunk), so device memory stays
-O(chunk). It comes back as a host array tagged with the device it was
+O(slab). It comes back as a host array tagged with the device it was
 evaluated on (:class:`SdfGrid`), and :func:`grid_to_mesh` meshes where the
 grid lives: K5 (``ops/isosurface.py``) on the card for a grid tagged with a
 CUDA device or a CUDA tensor, the native host code for anything else, with
 one result. Vertices are rescaled to ``[bound_min, bound_max]``.
+
+On the card the host grid is pinned memory from torch's caching host
+allocator, and each slab's copy into it runs on a copy stream while the next
+slab is evaluated (``grid.pinned_slabs`` counts those copies); the copies
+are waited for once, at the end. K5's upload of the same grid then reads
+page-locked memory too.
 """
 
 from __future__ import annotations
@@ -42,10 +48,11 @@ def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
     positive, as the reference marches). ``x_range`` (start, stop) limits
     the evaluation to those x planes (multiples of ``block``). Returns a
     float32 host array of shape (stop - start, res, res), an
-    :class:`SdfGrid` tagged with ``device``."""
+    :class:`SdfGrid` tagged with ``device``; pinned for a CUDA device."""
     if resolution % block and resolution >= block:
         raise ValueError(f"resolution {resolution} is not a multiple of "
                          f"block {block}")
+    device = torch.device(device)
     bmin = np.asarray(bound_min, np.float32)
     bmax = np.asarray(bound_max, np.float32)
     axes = [torch.from_numpy(np.linspace(bmin[i], bmax[i], resolution,
@@ -54,19 +61,38 @@ def eval_sdf_grid(sdf_fn: Callable[[torch.Tensor], torch.Tensor], bound_min,
     block = min(block, resolution)
     chunk = block ** 3
     x0, x1 = x_range if x_range is not None else (0, resolution)
-    out = np.empty((x1 - x0, resolution, resolution),
-                   np.float32).view(SdfGrid)
-    out.torch_device = torch.device(device)
+    on_card = device.type == "cuda"
+    host = torch.empty((x1 - x0, resolution, resolution),
+                       dtype=torch.float32, pin_memory=on_card)
+    out = host.numpy().view(SdfGrid)
+    out.torch_device = device
+    if on_card:
+        # two device slabs in turn: one is copied out while the next is written
+        slabs = [torch.empty(block * resolution ** 2, device=device)
+                 for _ in range(2)]
+        compute = torch.cuda.current_stream(device)
+        copier = torch.cuda.Stream(device)
+        copied = [torch.cuda.Event(), torch.cuda.Event()]
     with span("gens/mesh/grid"):
-        for xs in range(x0, x1, block):
+        for k, xs in enumerate(range(x0, x1, block)):
+            dst = host[xs - x0:xs - x0 + block].view(-1)
+            slab = slabs[k % 2] if on_card else dst
+            if on_card and k >= 2:
+                compute.wait_event(copied[k % 2])
             gx, gy, gz = torch.meshgrid(axes[0][xs:xs + block], axes[1],
                                         axes[2], indexing="ij")
             pts = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
-            vals = torch.cat([sdf_fn(pts[i:i + chunk])
-                              for i in range(0, pts.shape[0], chunk)])
-            with span("gens/mesh/copy"):
-                out[xs - x0:xs - x0 + block] = (-vals).reshape(
-                    block, resolution, resolution).cpu().numpy()
+            for i in range(0, pts.shape[0], chunk):
+                torch.neg(sdf_fn(pts[i:i + chunk]), out=slab[i:i + chunk])
+            if on_card:
+                with span("gens/mesh/copy"):
+                    copier.wait_stream(compute)
+                    with torch.cuda.stream(copier):
+                        dst.copy_(slab, non_blocking=True)
+                    copied[k % 2].record(copier)
+                count("grid.pinned_slabs")
+        if on_card:
+            copier.synchronize()
     return out
 
 

@@ -3,10 +3,13 @@
 evaluated on (``SdfGrid``), and the tag takes K5 only for a CUDA device. A
 grid evaluated on the CPU, a plain array, a copy that lost the tag and a
 CPU tensor take the native host code (``isosurface.host`` counts,
-``k5.launches`` does not), bit-equal to ``marching_tetrahedra``; the tagged
-array behaves as numpy; K5's wrapper and the dispatch refuse what has no
-path. The kernel itself is held to the host code on the card in
-tests/test_torch_isosurface_cuda.py."""
+``k5.launches`` does not), bit-equal to ``marching_tetrahedra``; a grid
+evaluated on the CPU is plain memory (not pinned, ``grid.pinned_slabs``
+unmoved) with the values of a plain per-slab evaluation; the tagged array
+behaves as numpy; K5's wrapper and the dispatch refuse what has no path.
+The kernel itself is held to the host code on the card in
+tests/test_torch_isosurface_cuda.py, which also holds the card's pinned
+grid to :func:`plain_grid`."""
 
 import numpy as np
 import pytest
@@ -28,6 +31,25 @@ def _sdf(p):
 @pytest.fixture(scope="module")
 def grid():
     return eval_sdf_grid(_sdf, *BOUNDS, 24, "cpu", block=8)
+
+
+def plain_grid(sdf_fn, bmin, bmax, res, block, device="cpu", x_range=None):
+    """``-sdf`` on ``device`` slab by slab, each copied to the host with
+    ``.cpu()``."""
+    bmin, bmax = np.float32(bmin), np.float32(bmax)
+    axes = [torch.from_numpy(np.linspace(bmin[i], bmax[i], res,
+                                         dtype=np.float32)).to(device)
+            for i in range(3)]
+    x0, x1 = x_range or (0, res)
+    slabs = []
+    for xs in range(x0, x1, block):
+        g = torch.meshgrid(axes[0][xs:xs + block], axes[1], axes[2],
+                           indexing="ij")
+        pts = torch.stack(g, dim=-1).reshape(-1, 3)
+        vals = torch.cat([sdf_fn(pts[i:i + block ** 3])
+                          for i in range(0, len(pts), block ** 3)])
+        slabs.append((-vals).reshape(block, res, res).cpu().numpy())
+    return np.concatenate(slabs)
 
 
 def _counts():
@@ -55,6 +77,18 @@ def test_grid_evaluated_on_the_cpu_is_tagged_and_meshed_on_the_host(grid):
     assert _counts() == (before[0], before[1] + 1)
     assert len(got[1]) > 100
     _same(got, _host_mesh(grid))
+
+
+@pytest.mark.parametrize("x_range", [None, (8, 16)], ids=["whole", "x8_16"])
+def test_grid_evaluated_on_the_cpu_is_plain_memory(x_range):
+    before = counter("grid.pinned_slabs")
+    g = eval_sdf_grid(_sdf, *BOUNDS, 24, "cpu", block=8, x_range=x_range)
+    assert counter("grid.pinned_slabs") == before
+    assert not torch.from_numpy(np.asarray(g)).is_pinned()
+    assert g.torch_device == torch.device("cpu")
+    want = plain_grid(_sdf, *BOUNDS, 24, 8, x_range=x_range)
+    assert g.shape == want.shape
+    assert np.array_equal(np.asarray(g).view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("form", ["ndarray", "ascontiguousarray", "copy_cpu",

@@ -6,8 +6,11 @@ normal grid of odd unequal sides, exact zeros and -0.0, grids all on one
 side (an empty mesh), a single cube, and the 512³ grid of a synthetic val
 scene on the trained weights through ``eval_sdf_grid`` -> ``grid_to_mesh``.
 Also: ``k5.launches`` and ``isosurface.host`` per path, a tagged grid
-changed in place is meshed as changed, and the wrapper's refusals. Imports
-neither jax nor gens_tpu:
+changed in place is meshed as changed, and the wrapper's refusals. The grid
+``eval_sdf_grid`` returns for the card is pinned, counts its slabs in
+``grid.pinned_slabs``, equals a plain per-slab ``.cpu()`` evaluation
+(``test_torch_isosurface.plain_grid``) bit for bit, and is meshed as edited
+after its return. Imports neither jax nor gens_tpu:
 
     python -m pytest --noconftest -q tests/test_torch_isosurface_cuda.py
 
@@ -28,6 +31,7 @@ from gens_torch.mesh.isosurface import marching_tetrahedra
 from gens_torch.models.gens import GenSModel
 from gens_torch.ops import isosurface as k5
 from gens_torch.utils.profiling import counter
+from test_torch_isosurface import plain_grid
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(REPO, "artifacts", "quality_gen_r05_sharpen.pkl")
@@ -70,6 +74,19 @@ GRIDS = {
     "one_cube": lambda: np.random.default_rng(2).standard_normal(
         (2, 2, 2)).astype(np.float32),
 }
+
+
+def analytic_sdf(seed):
+    """A seeded wavy sphere, float32 on the points' device."""
+    r = np.random.default_rng(seed)
+    c = torch.tensor(r.uniform(-0.05, 0.05, 3), dtype=torch.float32)
+    a, w = float(r.uniform(0.03, 0.06)), float(r.uniform(5.0, 9.0))
+
+    def f(p):
+        q = p - c.to(p.device)
+        return (q.norm(dim=-1) - 0.9
+                + a * torch.sin(w * q[:, 0]) * torch.cos(w * q[:, 1]))
+    return f
 
 
 def assert_same_mesh(got, want):
@@ -119,6 +136,7 @@ def test_paths_and_counters(card):
 def test_a_changed_tagged_grid_is_meshed_as_changed(card):
     g = eval_sdf_grid(lambda p: p.norm(dim=-1) - 0.5, [-1] * 3, [1] * 3, 32,
                       card, block=16)
+    assert torch.from_numpy(np.asarray(g)).is_pinned()
     first = grid_to_mesh(g, [-1] * 3, [1] * 3)
     g[:8] += 0.05
     g[g.shape[0] // 2:] = 0.0
@@ -128,6 +146,26 @@ def test_a_changed_tagged_grid_is_meshed_as_changed(card):
     want = grid_to_mesh(np.asarray(g), [-1] * 3, [1] * 3)
     assert_same_mesh(got, want)
     assert len(got[1]) != len(first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,x_range", [(64, None), (64, (64, 128)),
+                                           (16, None)],
+                         ids=["whole", "x64_128", "block16"])
+def test_pinned_grid_equals_a_plain_evaluation(card, block, x_range):
+    """128³ in slabs of ``block`` planes; block 16 takes each of the two
+    device slabs four times."""
+    sdf = analytic_sdf(7)
+    before = counter("grid.pinned_slabs")
+    g = eval_sdf_grid(sdf, [-1] * 3, [1] * 3, 128, card, block=block,
+                      x_range=x_range)
+    x0, x1 = x_range or (0, 128)
+    assert counter("grid.pinned_slabs") == before + (x1 - x0) // block
+    assert torch.from_numpy(np.asarray(g)).is_pinned()
+    assert g.torch_device.type == "cuda"
+    want = plain_grid(sdf, [-1] * 3, [1] * 3, 128, block, card, x_range)
+    assert g.shape == want.shape == (x1 - x0, 128, 128)
+    assert np.array_equal(np.asarray(g).view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.cuda
@@ -141,8 +179,8 @@ def test_wrapper_checks_inputs(card):
 @pytest.mark.cuda
 def test_val_scene_grid_512(card):
     """The 512³ grid of a synthetic val scene (3 views at 480x640,
-    confs/dtu.yaml's model on the trained weights), meshed by K5 and by the
-    host code."""
+    confs/dtu.yaml's model on the trained weights), copied to the host in 8
+    pinned slabs and meshed by K5 and by the host code."""
     cfg = load_config(os.path.join(REPO, "confs", "dtu.yaml"))
     model = GenSModel(cfg.model)
     load_params(model, ARTIFACT)
@@ -150,11 +188,13 @@ def test_val_scene_grid_512(card):
     raw = SyntheticDataset(1, 3, (480, 640), val_res_level=4)[0]
     x = {k: torch.from_numpy(raw[k]).to(card)
          for k in ("imgs", "intrs", "c2ws")}
+    slabs = counter("grid.pinned_slabs")
     with torch.no_grad():
         scene = model.build_scene(x["imgs"], x["intrs"], x["c2ws"])
         grid = eval_sdf_grid(
             model.renderer.sdf_fn_for_extraction(scene.volumes),
             raw["bound_min"], raw["bound_max"], 512, card)
+    assert counter("grid.pinned_slabs") - slabs == 8  # 512 / 64 x-slabs
     before = (counter("k5.launches"), counter("isosurface.host"))
     got = grid_to_mesh(grid, raw["bound_min"], raw["bound_max"])
     assert (counter("k5.launches") - before[0],
