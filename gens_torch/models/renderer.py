@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from gens_torch.config import RenderConfig
+from gens_torch.ops.capture import cumprod_no_zero, inverse
 from gens_torch.ops.fused_mlp import sdf_fused_fn
 from gens_torch.ops.interp import (combine_mask_cascade, lookup_mask,
                                    round_bf16, safe_norm)
@@ -212,13 +213,14 @@ class Renderer:
         pts_norm = torch.linalg.norm(pts_flat, dim=-1).reshape(R, S)
         inside_sphere = (pts_norm < 1.0).float() * vmask_rs
 
-        trans = torch.cumprod(torch.cat(
+        # every factor is at least 1e-7
+        trans = cumprod_no_zero(torch.cat(
             [torch.ones((R, 1), dtype=alpha.dtype, device=alpha.device),
              1.0 - alpha + 1e-7], dim=-1), dim=-1)[:, :-1]
         weights = alpha * trans
         color = torch.sum(sampled_color * weights[..., None], dim=1)
 
-        rot = torch.linalg.inv(scene.c2ws[0, :3, :3])
+        rot = inverse(scene.c2ws[0, :3, :3])
         normal = apply_linear(
             torch.sum(gradients.reshape(R, S, 3) * weights[..., None], dim=1),
             rot)
@@ -306,6 +308,9 @@ class Renderer:
             pts_sdf0, normal_sdf0, warp, scene.intrs, scene.c2ws,
             patch_size=cfg.patch_size)
 
+        with span("gens/render/tv"):
+            tv_reg = tv_regularization(scene.volumes, scene.mask_volumes)
+
         out.update({
             "weight_sum": weights.sum(dim=-1, keepdim=True),
             "weight_max": weights.max(dim=-1, keepdim=True).values,
@@ -316,7 +321,7 @@ class Renderer:
             "relax_inside_sphere": relax_inside,
             "smooth_sur": smooth_sur,
             "sparse_sdf": sparse_sdf,
-            "tv_reg": tv_regularization(scene.volumes, scene.mask_volumes),
+            "tv_reg": tv_reg,
             "ref_gray_val": ref_gray,
             "sampled_gray_val": sampled_gray,
         })

@@ -18,6 +18,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from gens_torch.ops.capture import inverse
 from gens_torch.ops.interp import bilerp, safe_norm, trilerp
 
 
@@ -42,7 +43,7 @@ def project_points(pts: torch.Tensor, intr: torch.Tensor, c2w: torch.Tensor,
     """Project world points (N, 3) into one camera. Returns pixel xy (N, 2)
     and the in-frustum mask (N,) (z > 0 and inside the image)."""
     h, w = hw
-    w2c = torch.linalg.inv(c2w)
+    w2c = inverse(c2w)
     cam = apply_linear(pts, w2c[:3, :3], w2c[:3, 3])
     uvw = apply_linear(cam, intr)
     z = uvw[..., 2:3]
@@ -124,7 +125,7 @@ def surface_patch_warp(pts: torch.Tensor, normals: torch.Tensor,
     N = pts.shape[0]
     S = intrs.shape[0] - 1
     K_ref = intrs[0]
-    K_ref_inv = torch.linalg.inv(K_ref)
+    K_ref_inv = inverse(K_ref)
     K_src = intrs[1:]
     R_ref = c2ws[0, :3, :3]
     C_ref = c2ws[0, :3, 3]

@@ -99,7 +99,7 @@ from gens_torch.train.checkpoint import (latest_checkpoint,
                                          save_checkpoint,
                                          save_finetune_checkpoint)
 from gens_torch.train.schedule import cos_anneal_ratio
-from gens_torch.train.step import (FinetuneStep, TrainStep,
+from gens_torch.train.step import (FinetuneStep, TrainStep, ViewCycle,
                                    sync_match_features)
 from gens_torch.utils.meters import DictAverageMeter, MetricsLogger
 from gens_torch.utils.prefetch import prefetch_map
@@ -504,11 +504,11 @@ class Runner:
         self.ft_step = step_fn
         ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
         avg = DictAverageMeter()
-        perm = self.rng.permutation(dataset.num_views)
+        views = ViewCycle(dataset.num_views, self.rng)
         for step in range(tc.epochs):
             if process_count() > 1:
                 broadcast_ints([FT_STEP, step])
-            vid = int(perm[step % len(perm)])
+            vid = views.view
             raw = dataset.get_random_rays(vid)
             inputs = self._tensors(raw)
             inputs["view_ids"] = torch.from_numpy(raw["view_ids"]).to(
@@ -523,8 +523,7 @@ class Runner:
             self.finetune_stats.append({"step": step, "vid": vid,
                                         "step_s": seconds, **scalars})
             avg.update(scalars)
-            if (step + 1) % len(perm) == 0:
-                perm = self.rng.permutation(dataset.num_views)
+            views.advance()
             if (step + 1) % max(1, int(tc.log_freq)) == 0:
                 print(f"[finetune] step {step} view {vid}: loss "
                       f"{scalars['loss']:.5f} psnr {scalars['psnr']:.3f} "

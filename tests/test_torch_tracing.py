@@ -29,7 +29,8 @@ from _torch_common import tiny_configs
 HW = (64, 64)
 TRAIN_KEYS = {"build_scene", "render", "backward", "optimizer",
               "build_scene/features", "build_scene/aggregate",
-              "build_scene/reg", "render/sampler", "render/core", "enqueue",
+              "build_scene/reg", "render/sampler", "render/core",
+              "render/tv", "enqueue",
               "render/sampler/live_share", "features/encoder",
               "backward/features", "features/views", "features/match_views"}
 
@@ -272,7 +273,7 @@ def test_train_step_timing_returns_each_phase_and_span(packed_bilerp):
     assert not profiling.enabled()
 
 
-def test_finetune_step_timing_returns_its_three_phases():
+def _finetune_step():
     cfg, model = _model()
     images = TData(1, 3, HW, mode="finetune").get_all_images()
     vols, masks, feats = model.init_volumes(
@@ -281,15 +282,51 @@ def test_finetune_step_timing_returns_its_three_phases():
     batch = {k: torch.from_numpy(v) for k, v in raw.items()
              if isinstance(v, np.ndarray) and v.dtype == np.float32}
     batch["view_ids"] = torch.from_numpy(np.asarray(raw["view_ids"]))
-    step = FinetuneStep(model, cfg, vols, masks, feats)
+    return model, FinetuneStep(model, cfg, vols, masks, feats), batch
+
+
+def test_finetune_step_timing_returns_its_three_phases():
+    _, step, batch = _finetune_step()
     m = step(batch, 0.5, generator=torch.Generator().manual_seed(0),
              timing=True)
     phase = m["phase_ms"]
     assert set(phase) == {"render", "backward", "optimizer",
-                          "render/sampler", "render/core", "enqueue",
-                          "render/sampler/live_share"}, sorted(phase)
+                          "render/sampler", "render/core", "render/tv",
+                          "enqueue", "render/sampler/live_share"}, \
+        sorted(phase)
     assert all(isinstance(v, float) and v >= 0 for v in phase.values())
     assert 0 < phase["render/sampler/live_share"] <= 100
+
+
+def test_finetune_step_records_tv_inside_the_render_core():
+    """The TV term's span, once a step, inside the render core."""
+    _, step, batch = _finetune_step()
+    first = profiling.records()[-1].seq if profiling.records() else 0
+    step(batch, 0.5, generator=torch.Generator().manual_seed(0),
+         timing=True)
+    tv = [r for r in profiling.records(first) if r.path == "gens/render/tv"]
+    assert [r.parent.path for r in tv] == ["gens/render/core"]
+    assert tv[0].t0 <= tv[0].t1
+    assert not profiling.enabled()
+
+
+def test_finetune_step_spans_change_nothing():
+    """A recorded step and one with spans off, from the same state, give
+    the same metrics, gradients and updated volumes bit for bit."""
+    got = []
+    for timing in (True, False):
+        model, step, batch = _finetune_step()
+        m = step(batch, 0.5, generator=torch.Generator().manual_seed(0),
+                 timing=timing)
+        m.pop("phase_ms", None)
+        got.append((m, [v.grad for v in step.volumes],
+                    [v.detach() for v in step.volumes],
+                    [p.grad for p in model.sdf.parameters()]))
+    (m1, g1, v1, s1), (m0, g0, v0, s0) = got
+    assert m1.keys() == m0.keys()
+    assert all(torch.equal(m1[k], m0[k]) for k in m0)
+    for a, b in zip(g1 + v1 + s1, g0 + v0 + s0):
+        assert torch.equal(a, b)
 
 
 def test_mesh_grid_leaves_one_root_with_its_children():
